@@ -1,7 +1,7 @@
-// fslr-tpu native host runtime: FASTQ/FASTA parsing at IO speed.
+// fslr-jax native host runtime: FASTQ/FASTA parsing at IO speed.
 //
 // The reference pipeline's IO edge is native (pysam/htslib readers, gzip;
-// SURVEY.md N8/N9).  This library is the equivalent for the TPU engine:
+// SURVEY.md N8/N9).  This library is the equivalent for this engine:
 // it parses FASTQ/FASTA (plain or gzip, via zlib's gzFile which handles
 // multi-member streams) in one pass and emits
 //   * 2-bit+N encoded sequence codes (A=0 C=1 G=2 T=3 other=4) into a

@@ -1,9 +1,9 @@
 """NumPy dynamic-programming oracles for kernel unit tests.
 
 These are straightforward O(Q*T) implementations of the published recurrences
-(affine-gap Smith-Waterman, Gotoh) used to validate the Pallas/JAX kernels.
+(affine-gap Smith-Waterman, Gotoh) used to validate the JAX and CUDA kernels.
 End-position tie semantics mirror the ssw library as documented in
-fslr_tpu/ops/ssw.py.
+fslr_jax/ops/ssw.py.
 """
 
 import numpy as np

@@ -4,9 +4,9 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from fslr_tpu.config import ClusterConfig
-from fslr_tpu.ops import components, jaccard
-from fslr_tpu.stages import cluster as C
+from fslr_jax.config import ClusterConfig
+from fslr_jax.ops import components, jaccard
+from fslr_jax.stages import cluster as C
 
 CFG = ClusterConfig()
 CHR_LEN = {'chr1': 10_000_000, 'chr2': 10_000_000}
@@ -31,6 +31,11 @@ def _bed(reads):
     return pd.DataFrame(rows)
 
 
+def _df(table):
+    """A stage's Table as a pandas frame (the tests' oracle library)."""
+    return pd.DataFrame(table.to_dict(), index=table.index)
+
+
 def _fusion_read(qname, interior_start, chrom='chr1', score=1000, jitter=0):
     """3-segment read: bread + one interior filling + bread."""
     s = interior_start + jitter
@@ -53,7 +58,7 @@ def test_cluster_two_groups_and_singletons():
     bed = _bed(reads)
     res = C.cluster_stage(bed, CHR_LEN, CFG)
     assert not res.no_clusters
-    cb = res.cluster_bed
+    cb = _df(res.cluster_bed)
     a_clusters = set(cb[cb['qname'].str.startswith('A')]['cluster'])
     b_clusters = set(cb[cb['qname'].str.startswith('B')]['cluster'])
     c_clusters = set(cb[cb['qname'].str.startswith('C')]['cluster'])
@@ -67,7 +72,7 @@ def test_cluster_two_groups_and_singletons():
     # chroms restored to strings
     assert set(cb['chrom']) <= {'chr1', 'chr2'}
     # representatives: best avg score per cluster -> A3, B2, C0
-    rep_names = set(res.representative_bed['qname'].str.split('.').str[0])
+    rep_names = set(_df(res.representative_bed)['qname'].str.split('.').str[0])
     assert {'A3', 'B2', 'C0'} <= rep_names
 
 
@@ -229,8 +234,8 @@ def test_device_enumeration_matches_host():
     m_dev, e_dev, n_dev = results['device']
     assert e_host == e_dev
     assert n_host == n_dev
-    mh = m_host.sort_values(['query1', 'query2']).reset_index(drop=True)
-    md = m_dev.sort_values(['query1', 'query2']).reset_index(drop=True)
+    mh = _df(m_host).sort_values(['query1', 'query2']).reset_index(drop=True)
+    md = _df(m_dev).sort_values(['query1', 'query2']).reset_index(drop=True)
     pd.testing.assert_frame_equal(mh, md)
     assert len(e_host) > 10          # edge cap actually exercised
 
@@ -290,9 +295,10 @@ def test_device_enumeration_cluster_stage():
     res_dev = C.cluster_stage(bed, CHR_LEN, cfg_dev)
     res_host = C.cluster_stage(bed, CHR_LEN, CFG)
     assert not res_dev.no_clusters
-    pd.testing.assert_frame_equal(res_host.cluster_bed, res_dev.cluster_bed)
-    pd.testing.assert_frame_equal(res_host.representative_bed,
-                                  res_dev.representative_bed)
+    pd.testing.assert_frame_equal(_df(res_host.cluster_bed),
+                                  _df(res_dev.cluster_bed))
+    pd.testing.assert_frame_equal(_df(res_host.representative_bed),
+                                  _df(res_dev.representative_bed))
 
 
 def test_sliced_encounter_enumeration_matches(monkeypatch):
@@ -310,7 +316,7 @@ def test_sliced_encounter_enumeration_matches(monkeypatch):
     bed = _bed(reads)
     res_big = C.cluster_stage(bed, CHR_LEN, CFG)
 
-    import fslr_tpu.stages.cluster as cm
+    import fslr_jax.stages.cluster as cm
     src = cm.query_graph.__globals__
     # shrink the cap by patching the module constant inside query_graph:
     # SLICE_CAP is a local literal, so patch via code path — rebuild the
@@ -320,12 +326,12 @@ def test_sliced_encounter_enumeration_matches(monkeypatch):
 
     def groups(res):
         return sorted((sorted(s) for s in
-                       res.cluster_bed.groupby('cluster')['qname']
+                       _df(res.cluster_bed).groupby('cluster')['qname']
                        .apply(set).tolist()))
     assert groups(res_big) == groups(res_small)
     pd.testing.assert_frame_equal(
-        res_big.cluster_bed.reset_index(drop=True),
-        res_small.cluster_bed.reset_index(drop=True))
+        _df(res_big.cluster_bed).reset_index(drop=True),
+        _df(res_small.cluster_bed).reset_index(drop=True))
 
 
 @pytest.mark.parametrize('scale_path', ['sharded', 'spill'])
@@ -335,7 +341,7 @@ def test_scale_enumeration_matches_host(scale_path, monkeypatch):
     like the host path."""
     import dataclasses as dc
 
-    from fslr_tpu.ops import encounters as enc
+    from fslr_jax.ops import encounters as enc
 
     if scale_path == 'spill':
         # force the fallback: pretend the sharded build overflowed
@@ -370,9 +376,9 @@ def test_scale_enumeration_matches_host(scale_path, monkeypatch):
     for tag in ('scale', 'device'):
         assert results['host'][1] == results[tag][1], tag    # edges
         assert results['host'][2] == results[tag][2], tag    # node order
-        mh = results['host'][0].sort_values(
+        mh = _df(results['host'][0]).sort_values(
             ['query1', 'query2']).reset_index(drop=True)
-        mt = results[tag][0].sort_values(
+        mt = _df(results[tag][0]).sort_values(
             ['query1', 'query2']).reset_index(drop=True)
         pd.testing.assert_frame_equal(mh, mt)
     assert len(results['host'][1]) > 20
@@ -384,7 +390,7 @@ def test_capwalk_replay_matches_sequential_walk():
     (/root/reference/fslr/cluster.py:204-224: emit on pass, and once
     edge_count >= threshold skip the rest of the current interval's
     neighbors on every valued entry) for adversarial random patterns."""
-    from fslr_tpu.ops import capwalk
+    from fslr_jax.ops import capwalk
 
     def sequential(passv, gated, runs, bounds, T):
         E = len(passv)
@@ -444,9 +450,9 @@ def test_value_and_replay_host_chunked_matches_flat():
     compare against the one-chunk pass."""
     import numpy as np
 
-    from fslr_tpu.config import ClusterConfig
-    from fslr_tpu.ops import capwalk as cw
-    from fslr_tpu.stages import cluster as C
+    from fslr_jax.config import ClusterConfig
+    from fslr_jax.ops import capwalk as cw
+    from fslr_jax.stages import cluster as C
     from tests.test_reference_oracle import make_frame
 
     rng = np.random.default_rng(909)
@@ -468,7 +474,7 @@ def test_value_and_replay_host_chunked_matches_flat():
                 {f'chr{c}': 10_000_000 for c in
                  sorted(set(bed['chrom']))}, cfg)
             outs[label] = (None if res.no_clusters else
-                           res.cluster_bed.to_csv())
+                           _df(res.cluster_bed).to_csv())
         finally:
             cw.value_and_replay_host = orig
     assert outs['flat'] == outs['tiny']
@@ -482,8 +488,8 @@ def test_spill_query_ranges_ragged_tail():
     69 reads -> q_span = 2, last range holds one read."""
     import numpy as np
 
-    from fslr_tpu.config import ClusterConfig
-    from fslr_tpu.stages import cluster as C
+    from fslr_jax.config import ClusterConfig
+    from fslr_jax.stages import cluster as C
 
     rng = np.random.default_rng(6969)
     R = 69

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from fslr_tpu.config import ConsensusConfig, ScoringConfig
-from fslr_tpu.encode import decode, encode
-from fslr_tpu.ops import banded, poa
+from fslr_jax.config import ConsensusConfig, ScoringConfig
+from fslr_jax.encode import decode, encode
+from fslr_jax.ops import banded, poa
 from tests.oracles import mutate, random_seq
 
 CFG = ConsensusConfig()
@@ -14,7 +14,7 @@ CFG = ConsensusConfig()
 def test_identical_members_consensus_is_backbone():
     rng = np.random.default_rng(0)
     seq = decode(random_seq(rng, 600))
-    cons = poa.consensus_sequences([[seq] * 5], CFG, backend='jax')
+    cons = poa.consensus_sequences([[seq] * 5], CFG)
     assert cons[0] == seq
 
 
@@ -23,7 +23,7 @@ def test_consensus_recovers_original():
     original = random_seq(rng, 500)
     members = [decode(mutate(rng, original, sub=0.05, indel=0.02))
                for _ in range(9)]
-    cons = poa.consensus_sequences([members], CFG, backend='jax')[0]
+    cons = poa.consensus_sequences([members], CFG)[0]
     assert abs(len(cons) - 500) < 25
     # consensus must align to the original near-perfectly
     q = np.full((1, 512), 4, np.uint8)
@@ -70,9 +70,9 @@ def test_noisy_cluster_poa_beats_pileup_and_backbone():
     members = [decode(mutate(rng, original, sub=0.10, indel=0.05))
                for _ in range(11)]
     poa_cons = poa.consensus_sequences(
-        [members], ConsensusConfig(engine='poa'), backend='jax')[0]
+        [members], ConsensusConfig(engine='poa'))[0]
     pile_cons = poa.consensus_sequences(
-        [members], ConsensusConfig(engine='pileup'), backend='jax')[0]
+        [members], ConsensusConfig(engine='pileup'))[0]
     id_poa = _identity_to(original, poa_cons)
     id_pile = _identity_to(original, pile_cons)
     id_backbone = max(_identity_to(original, m) for m in members[:3])
@@ -93,7 +93,7 @@ def test_multiple_clusters_batched():
         clusters.append([decode(mutate(rng, orig, sub=0.04, indel=0.01))
                         for _ in range(5)])
     clusters.append([])          # empty cluster -> ''
-    cons = poa.consensus_sequences(clusters, CFG, backend='jax')
+    cons = poa.consensus_sequences(clusters, CFG)
     assert cons[3] == ''
     for c, orig in zip(cons[:3], originals):
         assert abs(len(c) - 400) < 20
@@ -131,7 +131,7 @@ def test_many_clusters_long_reads_stress():
         originals.append(orig)
         clusters.append([decode(mutate(rng, orig, sub=0.05, indel=0.02))
                          for _ in range(n)])
-    cons = poa.consensus_sequences(clusters, ConsensusConfig(), backend='jax')
+    cons = poa.consensus_sequences(clusters, ConsensusConfig())
     assert len(cons) == 40
     worst = 1.0
     for c, orig in zip(cons, originals):

@@ -3,8 +3,13 @@
 import numpy as np
 import pandas as pd
 
-from fslr_tpu.stages.align import Alignments
-from fslr_tpu.stages.mapping_table import mapping_table
+from fslr_jax.stages.align import Alignments
+from fslr_jax.stages import mapping_table as mt
+
+
+def mapping_table(*args, **kwargs):
+    """The stage's Table as a pandas frame (the tests' oracle library)."""
+    return pd.DataFrame(mt.mapping_table(*args, **kwargs).to_dict())
 
 PRIMERS = {'21q1': 'CTACCTCTCTCGACACCAAG', '17p6': 'GGCTGAACTATAGCCTCTGC'}
 

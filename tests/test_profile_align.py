@@ -5,11 +5,11 @@ POA-engine consensus quality (abpoa replacement semantics,
 import numpy as np
 import pytest
 
-from fslr_tpu.config import ConsensusConfig, ScoringConfig
-from fslr_tpu.encode import decode, encode
-from fslr_tpu.ops import poa, profile_align as pa
-from fslr_tpu.ops.banded import BW
-from fslr_tpu.ops.ssw import first_gap_cost
+from fslr_jax.config import ConsensusConfig, ScoringConfig
+from fslr_jax.encode import decode, encode
+from fslr_jax.ops import poa, profile_align as pa
+from fslr_jax.ops.banded import BW
+from fslr_jax.ops.ssw import first_gap_cost
 from tests.oracles import mutate, random_seq
 
 NEG = -1e30
@@ -101,12 +101,11 @@ def _random_case(rng, Lq, W):
     return qcodes, scores, ext_c, sp.view(np.int32), g
 
 
-@pytest.mark.parametrize('backend', ['jax', 'pallas_interpret'])
-def test_profile_kernel_matches_oracle(backend):
+def test_profile_kernel_matches_oracle():
     rng = np.random.default_rng(3)
     Lq = 256
     W = Lq + 256
-    n = 4 if backend == 'jax' else 2
+    n = 4
     q = np.full((n, Lq), 4, np.uint8)
     sp = np.empty((n, W), np.int32)
     g = np.empty((n, W), np.float32)
@@ -119,8 +118,7 @@ def test_profile_kernel_matches_oracle(backend):
         sp[r] = sp_r
         g[r] = g_r
         cases.append((qcodes, scores, ext_c))
-    score, qend, lane, bits = pa.profile_banded_tb(q, sp, g, qlens, SC,
-                                                   backend=backend)
+    score, qend, lane, bits = pa.profile_banded_tb(q, sp, g, qlens, SC)
     score = np.asarray(score)
     qend = np.asarray(qend)
     lane = np.asarray(lane)
@@ -151,7 +149,7 @@ def test_profile_walk_path_rescoring():
         g[r] = g_r
         cases.append((qcodes, scores, ext_c))
     score, qend, lane, qstart, l_fin, cigars = pa.profile_align_walk(
-        q, sp, g, qlens, SC, backend='jax')
+        q, sp, g, qlens, SC)
     for r, (qcodes, scores, ext_c) in enumerate(cases):
         qi = int(qstart[r])
         p = qi + int(l_fin[r])           # plane position of path start
@@ -179,8 +177,7 @@ def test_poa_identical_members_is_backbone():
     rng = np.random.default_rng(0)
     seq = decode(random_seq(rng, 600))
     cons = poa.consensus_sequences([[seq] * 5],
-                                   ConsensusConfig(engine='poa'),
-                                   backend='jax')
+                                   ConsensusConfig(engine='poa'))
     assert cons[0] == seq
 
 
@@ -203,11 +200,9 @@ def test_poa_beats_pileup_on_noisy_cluster():
     ostr = decode(original)
     members = [decode(mutate(rng, original, sub=0.05, indel=0.02))
                for _ in range(9)]
-    cpo = poa.consensus_sequences([members], ConsensusConfig(engine='poa'),
-                                  backend='jax')[0]
+    cpo = poa.consensus_sequences([members], ConsensusConfig(engine='poa'))[0]
     cpi = poa.consensus_sequences([members],
-                                  ConsensusConfig(engine='pileup'),
-                                  backend='jax')[0]
+                                  ConsensusConfig(engine='pileup'))[0]
     e_po, e_pi = _edit(cpo, ostr), _edit(cpi, ostr)
     assert e_po <= 5, e_po
     assert e_po <= e_pi, (e_po, e_pi)
@@ -225,8 +220,7 @@ def test_poa_recovers_majority_insertion():
     for _ in range(8):
         members.append(decode(mutate(rng, with_ins, sub=0.06, indel=0.02)))
     cons = poa.consensus_sequences([members],
-                                   ConsensusConfig(engine='poa'),
-                                   backend='jax')[0]
+                                   ConsensusConfig(engine='poa'))[0]
     assert _edit(cons, decode(with_ins)) <= 4
     # and the insertion content itself must be present
     assert _edit(cons[140:175], decode(with_ins[140:175])) <= 3
@@ -242,8 +236,7 @@ def test_poa_multiple_clusters_batched():
         clusters.append([decode(mutate(rng, orig, sub=0.04, indel=0.01))
                         for _ in range(5)])
     clusters.append([])
-    cons = poa.consensus_sequences(clusters, ConsensusConfig(engine='poa'),
-                                   backend='jax')
+    cons = poa.consensus_sequences(clusters, ConsensusConfig(engine='poa'))
     assert cons[3] == ''
     for c, orig in zip(cons[:3], originals):
         assert _edit(c, decode(orig)) <= 8

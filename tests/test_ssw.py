@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from fslr_tpu.config import ScoringConfig
-from fslr_tpu.ops import ssw
+from fslr_jax.config import ScoringConfig
+from fslr_jax.ops import ssw
 from tests.oracles import sw_oracle, sw_locate_oracle, random_seq, mutate
 
 SSW_SC = ScoringConfig()                                  # ssw convention
@@ -38,7 +38,7 @@ def _check(pairs, sc, backend, T=512):
         assert qend[i] == eqj, (i, qend[i], eqj)
 
 
-@pytest.mark.parametrize('backend', ['jax', 'pallas_interpret'])
+@pytest.mark.parametrize('backend', ['jax', pytest.param('cuda', marks=pytest.mark.gpu)])
 @pytest.mark.parametrize('sc', [SSW_SC, BWA_SC], ids=['ssw', 'bwa'])
 def test_sw_random(backend, sc):
     rng = np.random.default_rng(0)
@@ -111,7 +111,7 @@ def test_exact_match_score():
     assert int(qend[0]) == 19
 
 
-@pytest.mark.parametrize('backend', ['jax', 'pallas_interpret'])
+@pytest.mark.parametrize('backend', ['jax', pytest.param('cuda', marks=pytest.mark.gpu)])
 def test_sw_max_packed_matches_per_query(backend):
     """Row max of the lane-packed kernel == max over per-primer sw_max
     rows (segment isolation: no cross-primer paths)."""
@@ -119,7 +119,7 @@ def test_sw_max_packed_matches_per_query(backend):
     primers = [random_seq(rng, int(rng.integers(18, 25))) for _ in range(4)]
     rows, _, _ = ssw.pack_queries(primers, 32)
     assert rows.shape == (1, 128)
-    n = 6 if backend == 'jax' else 2
+    n = 6
     T = 512
     targets = np.full((n, T), 4, np.uint8)
     tlens = np.zeros(n, np.int32)

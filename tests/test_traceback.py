@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from fslr_tpu.config import ScoringConfig
-from fslr_tpu.ops import traceback as tb
+from fslr_jax.config import ScoringConfig
+from fslr_jax.ops import traceback as tb
 from tests.oracles import mutate, random_seq
 
 BWA_SC = ScoringConfig(gap_open_is_first_base=False)
@@ -30,8 +30,7 @@ def _score_from_path(cigar, q, w, qstart, rstart_w, sc):
     return score, qi, ri
 
 
-@pytest.mark.parametrize('backend', ['jax', 'pallas_interpret'])
-def test_traceback_paths(backend):
+def test_traceback_paths():
     rng = np.random.default_rng(0)
     Lq = 256
     N = 6
@@ -49,8 +48,7 @@ def test_traceback_paths(backend):
         q[r, :len(read)] = read
         qlens[r] = len(read)
         w[r] = win
-    score, qend, lane, bits = tb.banded_sw_tb(q, w, qlens, BWA_SC,
-                                              backend=backend)
+    score, qend, lane, bits = tb.banded_sw_tb(q, w, qlens, BWA_SC)
     score = np.asarray(score)
     qend = np.asarray(qend)
     lane = np.asarray(lane)
@@ -94,8 +92,7 @@ def test_device_walk_matches_host_walk():
         q[r, :len(read)] = read
         qlens[r] = len(read)
         w[r] = win
-    score, qend, lane, bits = tb.banded_sw_tb(q, w, qlens, BWA_SC,
-                                              backend='jax')
+    score, qend, lane, bits = tb.banded_sw_tb(q, w, qlens, BWA_SC)
     # host path
     ops, n_ops, i_fin, l_fin = tb.walk_paths(np.asarray(bits),
                                              np.asarray(qend),
@@ -119,8 +116,8 @@ def test_decode_emit_rows_native_matches_numpy():
     """Native C++ RLE (fslr_decode_emits) vs the numpy decode path on
     random packed blocks, including all-padding rows."""
     import numpy as np
-    from fslr_tpu.io.native import decode_emits
-    from fslr_tpu.ops import traceback as tbmod
+    from fslr_jax.io.native import decode_emits
+    from fslr_jax.ops import traceback as tbmod
     rng = np.random.default_rng(11)
     n, t4 = 64, 96
     blocks = rng.integers(0, 256, (n, t4)).astype(np.uint8)
@@ -133,3 +130,25 @@ def test_decode_emit_rows_native_matches_numpy():
     got = tbmod.decode_emit_rows(blocks)
     want = [tbmod.decode_emit_row(blocks[r]) for r in range(n)]
     assert got == want
+
+
+@pytest.mark.gpu
+def test_banded_extend_cuda_matches_plain():
+    """CUDA emit + walk vs the plain path: identical ends, begins and
+    2-bit op streams (integer DP, so equality is exact)."""
+    rng = np.random.default_rng(11)
+    Lq, N = 256, 37
+    q = np.full((N, Lq), 4, np.uint8)
+    w = rng.integers(0, 4, (N, Lq + 256)).astype(np.uint8)
+    qlens = np.zeros(N, np.int32)
+    for r in range(N):
+        read = random_seq(rng, int(rng.integers(40, Lq)))
+        seg = mutate(rng, read, sub=0.06, indel=0.03)[:Lq + 192]
+        q[r, :len(read)] = read
+        qlens[r] = len(read)
+        w[r, 64:64 + len(seg)] = seg
+    kw = dict(match=2.0, mismatch=-3.0, fg=7.0, ext=2.0)
+    gp, ge = tb.extend_windows(q, w, qlens, route='cuda', **kw)
+    wp, we = tb.extend_windows(q, w, qlens, route='plain', **kw)
+    np.testing.assert_array_equal(np.asarray(gp), np.asarray(wp))
+    np.testing.assert_array_equal(np.asarray(ge), np.asarray(we))
