@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Smoke test of fslr-jax on one NVIDIA GPU.
+"""Smoke test of fslr-tpu on one NVIDIA GPU.
 
     python chip_smoke.py                # phases 0-4 on one card
     python chip_smoke.py --four-cards   # the 4-card mesh path vs one card
@@ -90,7 +90,7 @@ def phase_device(allow_cpu: bool = False) -> dict:
 
 
 def phase_build() -> float:
-    from fslr_jax.ops import cuda
+    from fslr_tpu.ops import cuda
     t0 = time.perf_counter()
     cuda.ensure_loaded()
     dt = time.perf_counter() - t0
@@ -161,32 +161,19 @@ def sw_inputs(rng, n: int, tl: int, targets: list[np.ndarray]):
     return q, t, qlens, tlens
 
 
-def hmm_inputs(rng, b: int, length: int):
-    seq = rng.integers(0, 4, (b, length)).astype(np.uint8)
-    for r in range(0, b, 3):
-        per = int(rng.integers(1, 90))
-        s = int(rng.integers(0, length - 600))
-        seq[r, s:s + 600] = np.tile(seq[r, s:s + per], 600 // per + 1)[:600]
-    seq[1::7, 100:140] = 4
-    lens = rng.integers(length // 2, length + 1, b).astype(np.int32)
-    return seq, lens
-
-
 def phase_kernels(kernel_backend: str = 'cuda', sl: int = 3072,
                   band_rows: int = 5461, sw_reads: int = 4096,
-                  packed_rows: int = 8192, hmm_rows: int = 682,
-                  hmm_len: int = 3072, repeats: int = REPEATS) -> dict:
-    """Each hand kernel against the plain path: equal results (the
-    repeat mask: at most 1e-4 of positions, no junk decision) and the
+                  packed_rows: int = 8192, repeats: int = REPEATS) -> dict:
+    """Each hand kernel against the plain path: equal results and the
     median warm time of both."""
     import jax.numpy as jnp
 
-    from fslr_jax.config import JunkFilterConfig, PipelineConfig, \
+    from fslr_tpu.config import JunkFilterConfig, PipelineConfig, \
         ScoringConfig
-    from fslr_jax.encode import encode, revcomp
-    from fslr_jax.ops import banded, kmer_stats, ssw, tantan
-    from fslr_jax.ops import traceback as tb
-    from fslr_jax.panel import load_panel
+    from fslr_tpu.encode import encode, revcomp
+    from fslr_tpu.ops import banded, ssw
+    from fslr_tpu.ops import traceback as tb
+    from fslr_tpu.panel import load_panel
 
     rng = np.random.default_rng(2024)
     out = {}
@@ -273,26 +260,6 @@ def phase_kernels(kernel_backend: str = 'cuda', sl: int = 3072,
            _median_s(runs['jax'], repeats),
            f'{packed_rows} windows of {wt} bp')
 
-    # repeat mask: L = 3072 bucket, one filter batch of reads
-    seq, lens = hmm_inputs(rng, hmm_rows, hmm_len)
-    sd, ld = jnp.asarray(seq), jnp.asarray(lens)
-    runs = {b: (lambda b=b: tantan.repeat_mask(sd, ld, cfg, backend=b))
-            for b in (kb, 'jax')}
-    mg, mw = np.asarray(runs[kb]()), np.asarray(runs['jax']())
-    frac = float((mg != mw).mean())
-    if frac > 1e-4:
-        raise AssertionError(f'repeat mask: {frac:.2e} of positions differ')
-    for fn in (kmer_stats.junk_gates, kmer_stats.junk_blocks):
-        a = np.asarray(fn(sd, ld, jnp.asarray(mg), cfg))
-        b_ = np.asarray(fn(sd, ld, jnp.asarray(mw), cfg))
-        if not np.array_equal(a, b_):
-            raise AssertionError(f'repeat mask: {fn.__name__} decisions '
-                                 f'differ')
-    log(f'[2] repeat mask: {frac:.2e} of positions differ (limit 1e-4), '
-        f'junk decisions equal')
-    record('repeat_mask', _median_s(runs[kb], repeats),
-           _median_s(runs['jax'], repeats), f'B={hmm_rows} L={hmm_len}')
-    out['repeat_mask']['positions_differing'] = frac
     return out
 
 
@@ -366,10 +333,10 @@ def phase_main_path(root: str, n_reads: int = 10_000, n_groups: int = 20,
     import jax
 
     import bench
-    from fslr_jax import cli, instrument
-    from fslr_jax.config import PipelineConfig
-    from fslr_jax.pipeline import _read_counts_csv, run_pipeline
-    from fslr_jax.table import read_tsv
+    from fslr_tpu import cli, instrument
+    from fslr_tpu.config import PipelineConfig
+    from fslr_tpu.pipeline import _read_counts_csv, run_pipeline
+    from fslr_tpu.table import read_tsv
 
     t0 = time.perf_counter()
     ref, fq_dir = bench.make_dataset(root, n_reads, n_groups=n_groups,
@@ -444,20 +411,16 @@ def phase_main_path(root: str, n_reads: int = 10_000, n_groups: int = 20,
 
 def _plain_twins() -> dict:
     """Each CUDA wrapper's plain JAX twin, by kernel name."""
-    from fslr_jax.ops import banded, ssw, tantan
-    from fslr_jax.ops import traceback as tb
-
-    def repeat_mask(seq, lens, cfg, backend=None, _orig=tantan.repeat_mask):
-        return _orig(seq, lens, cfg, 'jax')
+    from fslr_tpu.ops import banded, ssw
+    from fslr_tpu.ops import traceback as tb
 
     return {
-        'banded_score': ('cuda', 'banded_score', banded._banded_jax),
-        'banded_emit_walk': ('cuda', 'banded_extend',
+        'banded_score': ('banded_score', banded._banded_jax),
+        'banded_emit_walk': ('banded_extend',
                              lambda q, w, ql, **kw: tb.walk_packed(
                                  *tb._tb_jax(q, w, ql, **kw))),
-        'sw_locate': ('cuda', 'sw_max', ssw._sw_jax),
-        'sw_max_packed': ('cuda', 'sw_max_packed', ssw._sw_packed_jax),
-        'repeat_mask': ('tantan', 'repeat_mask', repeat_mask),
+        'sw_locate': ('sw_max', ssw._sw_jax),
+        'sw_max_packed': ('sw_max_packed', ssw._sw_packed_jax),
     }
 
 
@@ -466,34 +429,36 @@ def _kernel_on_plain_path(name: str):
     """Run one kernel family on its plain path (all others stay CUDA).
     Traces capture the kernel they were built with, so the caller drops
     compiled programs (``jax.clear_caches``) before each run."""
-    from fslr_jax.ops import cuda, tantan
-    mod_name, attr, twin = _plain_twins()[name]
-    mod = {'cuda': cuda, 'tantan': tantan}[mod_name]
-    orig = getattr(mod, attr)
-    setattr(mod, attr, twin)
+    from fslr_tpu.ops import cuda
+    attr, twin = _plain_twins()[name]
+    orig = getattr(cuda, attr)
+    setattr(cuda, attr, twin)
     try:
         yield
     finally:
-        setattr(mod, attr, orig)
+        setattr(cuda, attr, orig)
 
 
 def phase_compare_routes(root: str, ref: str, fq_dir: str,
-                         kernels=None, repeats: int = 8) -> dict:
-    """End-to-end walls on the phase-3 dataset: the default (CUDA) route
-    against backend='jax', then each CUDA kernel alone swapped for its
-    plain twin (``kernels`` selects which; all by default).  The two
-    sides run in turns, first one then the other; every run follows a
-    switch of kernels and so reloads its compiled programs from the
-    persistent cache, on both sides alike."""
+                         variants=None, repeats: int = 10) -> dict:
+    """End-to-end walls on the phase-3 dataset, in alternating turns (the
+    side that runs first swaps every turn).  Variants: ``all_plain``, the
+    default (CUDA) route against backend='jax'; and each CUDA kernel
+    alone swapped for its plain twin (names of ``_plain_twins``).
+    ``variants`` selects which; all by default.  A kernel swap changes
+    what a trace captures, so those pairs drop compiled programs before
+    every run of both sides and reload them from the persistent cache;
+    the ``all_plain`` pair keeps both routes compiled."""
     import io
 
     import jax
 
-    from fslr_jax.config import PipelineConfig
-    from fslr_jax.pipeline import run_pipeline
+    from fslr_tpu.config import PipelineConfig
+    from fslr_tpu.pipeline import run_pipeline
 
-    def run(b, tag):
-        jax.clear_caches()
+    def run(b, tag, fresh):
+        if fresh:
+            jax.clear_caches()
         o = os.path.join(root, f'cmp_{tag}')
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(io.StringIO()):
@@ -505,30 +470,34 @@ def phase_compare_routes(root: str, ref: str, fq_dir: str,
             stages = json.load(fh)['timings_s']
         return wall, stages
 
-    def turns(tag, ctx, b=None):
+    def turns(tag, ctx, b, fresh):
         with ctx():
-            run(b, f'{tag}_warm')
+            run(b, f'{tag}_warm', fresh)
         out = {'variant': [], 'default': []}
         for r in range(repeats):
             for side in (('variant', 'default') if r % 2 == 0
                          else ('default', 'variant')):
                 if side == 'variant':
                     with ctx():
-                        out[side].append(run(b, f'{tag}_{r}'))
+                        out[side].append(run(b, f'{tag}_{r}', fresh))
                 else:
-                    out[side].append(run(None, f'{tag}_default_{r}'))
+                    out[side].append(run(None, f'{tag}_default_{r}', fresh))
         walls = {k: [w for w, _ in v] for k, v in out.items()}
-        log(f'[5] {tag}: walls (s) {json.dumps(walls)}')
+        wins = sum(d < v for v, d in zip(walls['variant'], walls['default']))
+        log(f'[5] {tag}: walls (s) {json.dumps(walls)}; default faster in '
+            f'{wins} of {repeats} turns')
         _save(f'routes.{tag}', out)
         return out
 
-    names = list(_plain_twins()) if kernels is None else kernels
+    names = ['all_plain', *_plain_twins()] if variants is None else variants
     res = {}
-    if kernels is None:
-        res['all_plain'] = turns('all_plain', contextlib.nullcontext, 'jax')
     for name in names:
-        res[f'{name}_plain'] = turns(
-            f'{name}_plain', lambda n=name: _kernel_on_plain_path(n))
+        if name == 'all_plain':
+            res[name] = turns(name, contextlib.nullcontext, 'jax', False)
+        else:
+            res[f'{name}_plain'] = turns(
+                f'{name}_plain', lambda n=name: _kernel_on_plain_path(n),
+                None, True)
     return res
 
 
@@ -539,7 +508,7 @@ def phase_compare_routes(root: str, ref: str, fq_dir: str,
 def phase_consensus(root: str, n_reads: int = 2000, n_clusters: int = 100,
                     ref_mb: int = 6_000_000) -> dict:
     import bench
-    from fslr_jax import cli
+    from fslr_tpu import cli
 
     os.makedirs(root, exist_ok=True)
     ref, fq_dir = bench.make_dataset(root, n_reads, n_groups=n_clusters,
@@ -573,9 +542,9 @@ def phase_four_cards(root: str, n_reads: int = 10_000, n_groups: int = 20,
     import jax
 
     import bench
-    from fslr_jax.config import PipelineConfig
-    from fslr_jax.parallel.mesh import make_mesh
-    from fslr_jax.pipeline import run_pipeline
+    from fslr_tpu.config import PipelineConfig
+    from fslr_tpu.parallel.mesh import make_mesh
+    from fslr_tpu.pipeline import run_pipeline
 
     if len(jax.devices()) < n_dev:
         raise SystemExit(f'--four-cards needs {n_dev} devices, JAX sees '
@@ -614,11 +583,12 @@ def main(argv=None) -> int:
     ap.add_argument('--phases', default='0,1,2,3,4',
                     help='comma-separated subset of phases to run')
     ap.add_argument('--compare-routes', nargs='?', const='all',
-                    default=None, metavar='KERNELS',
+                    default=None, metavar='VARIANTS',
                     help='after phase 3, time the pipeline end to end on '
-                         'the default route against backend="jax" and '
-                         'against each CUDA kernel alone on its plain path '
-                         '(or only the comma-separated KERNELS)')
+                         'the default route against backend="jax" '
+                         '(all_plain) and against each CUDA kernel alone on '
+                         'its plain path (or only the comma-separated '
+                         'VARIANTS)')
     args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
 

@@ -79,8 +79,9 @@ class PrimerConfig:
 class AlignConfig:
     """Seed-chain-extend aligner replacing bwa mem + dodi selection.
 
-    The seeding/chaining design is TPU-native (fixed-stride exact k-mer seeds,
-    diagonal binning) rather than a transcription of bwa's FM-index SMEMs; the
+    The seeding/chaining design is device-native (fixed-stride exact k-mer
+    seeds, diagonal binning) rather than a transcription of bwa's FM-index
+    SMEMs; the
     scoring parameters mirror the reference bwa invocation (fslr/main.py:125).
     """
 
@@ -158,9 +159,8 @@ class ClusterConfig:
     # are held (bounds the incremental-merge sort size)
     enum_merge_cap: int = 96 * 1024 * 1024
     # encounter streams above this spill pair state to host RAM and
-    # process pk-range buckets on device (ops/encounters.py spill path):
-    # one device array cannot exceed 2 GiB on TPU, and sort transients
-    # exhaust HBM well before that
+    # process pk-range buckets on device (ops/encounters.py spill path);
+    # set for a 16 GB device, not re-derived for this card
     enum_spill_min_encounters: int = 1 << 27
 
 

@@ -2,7 +2,7 @@
 
 Replaces the reference pipeline's ``bwa index`` + FM-index seeding
 (/root/reference/fslr/main.py:125 ``bwa mem -k 11``,
-/root/reference/fslr/make_ref_mask.py:19) with a TPU-friendly design: a flat
+/root/reference/fslr/make_ref_mask.py:19) with a device-friendly design: a flat
 sorted k-mer -> positions table, replicated per host, that the device
 queries with pure gathers (ops/seed.py).  Seed length k mirrors bwa's
 ``-k 11`` (config.AlignConfig.seed_k); k-mers containing N are excluded.

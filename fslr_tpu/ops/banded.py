@@ -1,4 +1,4 @@
-"""Banded affine-gap Smith-Waterman extension kernel (Pallas, TPU).
+"""Banded affine-gap Smith-Waterman extension kernel.
 
 The extension half of the bwa-mem replacement (/root/reference/fslr/main.py:125
 scoring -A2 -B3 -O5 -E2): each candidate diagonal band from ops/seed.py is
@@ -6,7 +6,7 @@ extended by a local alignment of the full read against a reference window,
 restricted to a diagonal band of width BW = 128 lanes.
 
 Layout: band offsets l = 0..BW-1 live on lanes; query positions i are
-scanned sequentially; candidate rows live on sublanes.  Cell (i, l) covers
+scanned sequentially; candidates are rows.  Cell (i, l) covers
 reference position  ws + i + l  where ws is the window's global start
 (= anchor_diag - BW/2).  Predecessors:
 
@@ -15,9 +15,8 @@ reference position  ws + i + l  where ws is the window's global start
   ref-gap   (i, j-1):  lane l-1 — the in-row dependency, handled with the
                        same lane prefix-max closed form as ops/ssw.py.
 
-The sliding window read (window[i : i+BW] per step) cannot be a dynamic
-lane slice on Mosaic, so the kernel keeps two 128-lane window registers and
-peels one column per step by rolling (reload at every 128-step block).
+Two implementations share this recurrence: the plain ``lax.scan`` below
+(the CPU route and the reference) and the CUDA kernel of ops/cuda.py.
 
 Outputs per row: best score, query end step i*, band lane l* (both 0-based
 inclusive); rend = ws + i* + l*.  Begins are recovered by a second pass on
@@ -30,26 +29,22 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from fslr_tpu.config import ScoringConfig
-from fslr_tpu.ops.ssw import NEG, _cummax_exclusive, first_gap_cost, \
-    pad_rows_pow2
+from fslr_tpu.ops import cuda
+from fslr_tpu.ops.ssw import NEG, _cummax_exclusive, first_gap_cost
 
 BW = 128          # band width (lanes)
-DEF_BT = 256      # candidate-row tile
 
 
-def _banded_step(H, E, bestH, bestI, s, i_idx, qmask_i, jidx, fg, ext,
-                 roll_fn):
-    """One query row.  All arrays (BT, BW) f32; qmask_i is scalar-per-row."""
+def _banded_step(H, E, bestH, bestI, s, i_idx, qmask_i, jidx, fg, ext):
+    """One query row.  All arrays (N, BW) f32; qmask_i is scalar-per-row."""
     # query-gap (vertical in band space): predecessor at lane l+1
-    H_up = _shift_left(H, roll_fn, jidx)
-    E_up = _shift_left(E, roll_fn, jidx)
+    H_up = _shift_left(H, jidx)
+    E_up = _shift_left(E, jidx)
     E = jnp.maximum(E_up - ext, H_up - fg)
     Hno = jnp.maximum(jnp.maximum(H + s, E), 0.0)   # diag: same lane
-    Cm = _cummax_exclusive(Hno + jidx * ext, roll_fn, jidx)
+    Cm = _cummax_exclusive(Hno + jidx * ext, jidx)
     F = Cm - fg - (jidx - 1.0) * ext
     Hnew = jnp.maximum(Hno, F)
     upd = (Hnew > bestH) & qmask_i
@@ -58,128 +53,15 @@ def _banded_step(H, E, bestH, bestI, s, i_idx, qmask_i, jidx, fg, ext,
     return Hnew, E, bestH, bestI
 
 
-def _shift_left(x, roll_fn, jidx):
+def _shift_left(x, jidx):
     """x[l] -> x[l+1]; lane BW-1 becomes NEG (outside the band)."""
-    rolled = roll_fn(x, BW - 1)          # left-roll by 1
-    return jnp.where(jidx < BW - 1, rolled, NEG)
-
-
-def _banded_kernel(q_ref, wlo_ref, whi_ref, qlen_ref,
-                   score_ref, qend_ref, lane_ref,
-                   H_s, E_s, bH_s, bI_s,
-                   *, match, mismatch, fg, ext):
-    BT = q_ref.shape[0]
-    blk = pl.program_id(1)
-    n_blk = pl.num_programs(1)
-    jidx = jax.lax.broadcasted_iota(jnp.int32, (BT, BW), 1).astype(jnp.float32)
-    qlens = qlen_ref[:].astype(jnp.float32)
-    roll_fn = lambda x, d: pltpu.roll(x, shift=d, axis=1)
-
-    @pl.when(blk == 0)
-    def _():
-        H_s[:] = jnp.zeros((BT, BW), jnp.float32)
-        E_s[:] = jnp.full((BT, BW), NEG, jnp.float32)
-        bH_s[:] = jnp.full((BT, BW), NEG, jnp.float32)
-        bI_s[:] = jnp.zeros((BT, BW), jnp.float32)
-
-    base_i = jnp.float32(blk * 128)
-    qblk0 = q_ref[:]                     # (BT, 128) query block
-    wlo0 = wlo_ref[:]                    # window[blk*128 : blk*128+128]
-    whi0 = whi_ref[:]                    # window[blk*128+128 : +256]
-
-    def body(s_i, carry):
-        H, E, bestH, bestI, qblk, wlo, whi = carry
-        qcol = qblk[:, 0:1]              # query base at step i
-        wsl = jnp.where(jidx < jnp.float32(128) - s_i.astype(jnp.float32),
-                        wlo, whi)        # window[i : i+BW]
-        eq = (wsl == qcol) & (qcol < 4) & (wsl < 4)
-        s = jnp.where(eq, float(match), float(mismatch))
-        gi = base_i + s_i.astype(jnp.float32)
-        qmask_i = gi < qlens
-        H, E, bestH, bestI = _banded_step(
-            H, E, bestH, bestI, s, gi, qmask_i, jidx, fg, ext, roll_fn)
-        qblk = pltpu.roll(qblk, shift=127, axis=1)
-        wlo = pltpu.roll(wlo, shift=127, axis=1)
-        whi = pltpu.roll(whi, shift=127, axis=1)
-        return (H, E, bestH, bestI, qblk, wlo, whi)
-
-    carry = (H_s[:], E_s[:], bH_s[:], bI_s[:], qblk0.astype(jnp.float32) * 0
-             + qblk0, wlo0, whi0)
-    H, E, bestH, bestI, _, _, _ = jax.lax.fori_loop(0, 128, body, carry)
-    H_s[:], E_s[:], bH_s[:], bI_s[:] = H, E, bestH, bestI
-
-    @pl.when(blk == n_blk - 1)
-    def _():
-        bh = bH_s[:]
-        score = jnp.max(bh, axis=1)
-        is_best = bh == score[:, None]
-        big = jnp.float32(1e9)
-        lane = jnp.min(jnp.where(is_best, jidx, big), axis=1)
-        qend = jnp.min(jnp.where(is_best, bI_s[:], big), axis=1)
-        score = jnp.maximum(score, 0.0)
-        none = score <= 0.0
-        score_ref[:] = score[:, None]
-        qend_ref[:] = jnp.where(none, 0.0, qend)[:, None].astype(jnp.int32)
-        lane_ref[:] = jnp.where(none, 0.0, lane)[:, None].astype(jnp.int32)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=('match', 'mismatch', 'fg', 'ext', 'BT'))
-def _banded_pallas(q, w, qlens, *, match, mismatch, fg, ext, BT=DEF_BT):
-    """q: (N, Lq) codes; w: (N, Lq + 256) window codes (Lq multiple of
-    128); qlens: (N,).  Cast to int32 on device."""
-    q = q.astype(jnp.int32)
-    w = w.astype(jnp.int32)
-    N0, Lq = q.shape
-    assert Lq % 128 == 0
-    assert w.shape[1] == Lq + 256
-    N = pad_rows_pow2(N0, BT)
-    if N != N0:
-        q = jnp.pad(q, [(0, N - N0), (0, 0)], constant_values=4)
-        w = jnp.pad(w, [(0, N - N0), (0, 0)], constant_values=4)
-        qlens = jnp.pad(qlens, [(0, N - N0)])
-    n_blk = Lq // 128
-    kernel = functools.partial(_banded_kernel, match=match,
-                               mismatch=mismatch, fg=fg, ext=ext)
-    score, qend, lane = pl.pallas_call(
-        kernel,
-        grid=(N // BT, n_blk),
-        in_specs=[
-            pl.BlockSpec((BT, 128), lambda b, s: (b, s),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BT, 128), lambda b, s: (b, s),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BT, 128), lambda b, s: (b, s + 1),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BT, 1), lambda b, s: (b, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((BT, 1), lambda b, s: (b, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BT, 1), lambda b, s: (b, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BT, 1), lambda b, s: (b, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((N, 1), jnp.float32),
-            jax.ShapeDtypeStruct((N, 1), jnp.int32),
-            jax.ShapeDtypeStruct((N, 1), jnp.int32),
-        ],
-        scratch_shapes=[pltpu.VMEM((BT, BW), jnp.float32) for _ in range(4)],
-        cost_estimate=pl.CostEstimate(
-            flops=35 * N * Lq * BW, bytes_accessed=N * (2 * Lq + 256) * 4,
-            transcendentals=0),
-    )(q, w, w, qlens.astype(jnp.int32)[:, None])
-    return score[:N0, 0], qend[:N0, 0], lane[:N0, 0]
+    return jnp.where(jidx < BW - 1, jnp.roll(x, BW - 1, axis=1), NEG)
 
 
 # ---------------------------------------------------------------------------
-# Word-packed code gathers.  XLA lowers jnp.take with per-element indices
-# to a serial-ish HBM gather on TPU (~300 ms for 19k x 1792 uint8 rows);
-# gathering int32 WORDS (4 codes each) and byte-extracting with vector
-# shifts is ~4-8x faster.  Sources are packed little-endian (code i ->
+# Word-packed code gathers: int32 WORDS (4 codes each) are gathered and
+# byte-extracted with vector shifts, a quarter of the gather indices of a
+# per-element uint8 gather.  Sources are packed little-endian (code i ->
 # byte i % 4 of word i // 4); codes are <= 4 so words are never negative
 # and arithmetic shifts are safe.
 # ---------------------------------------------------------------------------
@@ -239,24 +121,23 @@ def gather_stream_rows(rows32, start, L: int):
 
 
 # ---------------------------------------------------------------------------
-# Score-only extension (forward + reverse pass): the fast path over ALL
-# candidates.  The traceback-emit kernel (ops/traceback.py) sustains ~3
-# Gcells/s against ~50 Gcells/s for this kernel, so candidates only pay
-# the emit cost AFTER selection (stages/align.py runs the emit kernel on
-# the dodi-selected winners only — typically ~15% of candidates).
+# Score-only extension (forward + reverse pass): the path over ALL
+# candidates.  Emitting traceback codes costs far more than scoring, so
+# candidates only pay the emit cost AFTER selection (stages/align.py runs
+# the emit kernel on the dodi-selected winners only — typically ~15% of
+# candidates).
 # ---------------------------------------------------------------------------
 
 @functools.partial(jax.jit, static_argnames=('match', 'mismatch', 'fg',
-                                             'ext', 'WL', 'use_pallas'))
+                                             'ext', 'WL', 'route'))
 def _score_extend_impl(q, qlens, ws, cmin, cmax, genome32, *, match,
-                       mismatch, fg, ext, WL, use_pallas):
+                       mismatch, fg, ext, WL, route):
     """Window gather + forward banded SW (ends) + reverse banded SW
     (begins), one jit, nothing but a (N, 5) int32 result to fetch.
 
     ``genome32`` is the word-packed genome (pack_codes_host); all windows
     and the reversed query are built with word gathers + vector byte
-    extraction (see gather_stream) — element-wise uint8 gathers were the
-    dominant cost of this whole stage on TPU.
+    extraction (see gather_stream).
 
     Reverse-pass geometry: a forward path ends at query i* = qend with the
     band cell covering ref position  re = ws + i* + l*.  Reversing both
@@ -280,7 +161,7 @@ def _score_extend_impl(q, qlens, ws, cmin, cmax, genome32, *, match,
         & (idx >= 0) & (idx < GB)
     w = jnp.where(valid, gather_stream(genome32, ws, WL), 4)
     kw = dict(match=match, mismatch=mismatch, fg=fg, ext=ext)
-    fb = _banded_pallas if use_pallas else _banded_jax
+    fb = cuda.banded_score if route == 'cuda' else _banded_jax
     score, qend, lane = fb(q, w, qlens, **kw)
 
     SL = q.shape[1]
@@ -313,18 +194,9 @@ def banded_extend_score(q, qlens, ws, cmin, cmax, genome_dev,
     l_fin] (ends/begins 0-based inclusive; rbegin = ws + qstart + l_fin,
     rend = ws + qend + lane).  Fetch after all dispatches.
     """
-    use_pallas = not (backend == 'jax' or (backend is None and
-                                           jax.default_backend() != 'tpu'))
     kw = dict(match=float(scoring.match), mismatch=float(scoring.mismatch),
               fg=first_gap_cost(scoring), ext=float(scoring.gap_extend),
-              WL=q.shape[1] + 256, use_pallas=use_pallas)
-    if backend == 'pallas_interpret':
-        kw['use_pallas'] = True
-        with pltpu.force_tpu_interpret_mode():
-            return _score_extend_impl(
-                jnp.asarray(q), jnp.asarray(qlens, jnp.int32),
-                jnp.asarray(ws, jnp.int32), jnp.asarray(cmin, jnp.int32),
-                jnp.asarray(cmax, jnp.int32), genome_dev, **kw)
+              WL=q.shape[1] + 256, route=cuda.kernel_route(backend))
     return _score_extend_impl(
         jnp.asarray(q), jnp.asarray(qlens, jnp.int32),
         jnp.asarray(ws, jnp.int32), jnp.asarray(cmin, jnp.int32),
@@ -332,8 +204,17 @@ def banded_extend_score(q, qlens, ws, cmin, cmax, genome_dev,
 
 
 # ---------------------------------------------------------------------------
-# Pure-JAX fallback (CPU tests / oracle cross-check)
+# Plain JAX implementation (the CPU route and the CUDA kernel's reference)
 # ---------------------------------------------------------------------------
+
+def window_codes(w, i, qcol, match, mismatch):
+    """Substitution scores of query step i: window[:, i:i+BW] vs the query
+    base ``qcol`` (N,), sliced inside the step (no (Lq, N, BW) window
+    stack is ever materialised)."""
+    wsl = jax.lax.dynamic_slice_in_dim(w, i, BW, axis=1)
+    eq = (wsl == qcol[:, None]) & (qcol[:, None] < 4) & (wsl < 4)
+    return jnp.where(eq, float(match), float(mismatch))
+
 
 @functools.partial(jax.jit, static_argnames=('match', 'mismatch', 'fg', 'ext'))
 def _banded_jax(q, w, qlens, *, match, mismatch, fg, ext):
@@ -342,26 +223,20 @@ def _banded_jax(q, w, qlens, *, match, mismatch, fg, ext):
     N, Lq = q.shape
     jidx = jnp.broadcast_to(
         jnp.arange(BW, dtype=jnp.float32)[None, :], (N, BW))
-    roll_fn = lambda x, d: jnp.roll(x, d, axis=1)
 
     def step(carry, inp):
         H, E, bestH, bestI = carry
-        qcol, wsl, i = inp
-        eq = (wsl == qcol[:, None]) & (qcol[:, None] < 4) & (wsl < 4)
-        s = jnp.where(eq, float(match), float(mismatch))
+        qcol, i = inp
+        s = window_codes(w, i, qcol, match, mismatch)
         qmask_i = (i < qlens)[:, None]
         H, E, bestH, bestI = _banded_step(
-            H, E, bestH, bestI, s, jnp.float32(i), qmask_i, jidx, fg, ext,
-            roll_fn)
+            H, E, bestH, bestI, s, jnp.float32(i), qmask_i, jidx, fg, ext)
         return (H, E, bestH, bestI), None
 
-    # precompute sliding windows with one gather: wins[i] = w[:, i:i+BW]
-    gidx = jnp.arange(Lq)[:, None] + jnp.arange(BW)[None, :]
-    wins = jnp.transpose(w[:, gidx], (1, 0, 2))
     zeros = jnp.zeros((N, BW), jnp.float32)
     init = (zeros, jnp.full((N, BW), NEG), jnp.full((N, BW), NEG), zeros)
     (H, E, bestH, bestI), _ = jax.lax.scan(
-        step, init, (q.T, wins, jnp.arange(Lq)), unroll=4)
+        step, init, (q.T, jnp.arange(Lq)), unroll=4)
     score = jnp.max(bestH, axis=1)
     is_best = bestH == score[:, None]
     big = jnp.float32(1e9)
@@ -378,13 +253,9 @@ def banded_sw(q, w, qlens, scoring: ScoringConfig, backend: str | None = None):
     window codes.  Returns (score, qend, lane), ends 0-based inclusive."""
     kw = dict(match=float(scoring.match), mismatch=float(scoring.mismatch),
               fg=first_gap_cost(scoring), ext=float(scoring.gap_extend))
-    q = jnp.asarray(q)          # uint8 upload; cast on device
+    q = jnp.asarray(q)
     w = jnp.asarray(w)
     qlens = jnp.asarray(qlens, jnp.int32)
-    if backend == 'pallas_interpret':
-        with pltpu.force_tpu_interpret_mode():
-            return _banded_pallas(q, w, qlens, **kw)
-    if backend == 'jax' or (backend is None
-                            and jax.default_backend() != 'tpu'):
-        return _banded_jax(q, w, qlens, **kw)
-    return _banded_pallas(q, w, qlens, **kw)
+    fn = cuda.banded_score if cuda.kernel_route(backend) == 'cuda' \
+        else _banded_jax
+    return fn(q, w, qlens, **kw)

@@ -131,8 +131,7 @@ def _block_gates_impl(seq, lens, mask, tel_codes, min_block_len,
     False gate decides junk=False without computing rep.
 
     Implemented as pure row-wise scans (cumsum/cummax along L) — the
-    segment-id formulation scatter-added into B*L/2 segments, which is
-    the classic TPU scatter trap (~50 ms/batch; this is ~5 ms).  Runs are
+    segment-id formulation scatter-added into B*L/2 segments.  Runs are
     maximal masked intervals, so "previous run start" is a cummax over
     start positions and per-run telomere counts are differences of an
     inclusive cumsum — no segment ids needed.  Telomere 6-mer membership
@@ -183,7 +182,7 @@ def _block_stats_impl(seq, lens, mask, tel_table, min_block_len,
      tel_pct, R, trash) = _runs_and_tel(seq, lens, mask, tel_table)
 
     # --- compute_rep per block (segmented lexsort over k = 2..6) -------
-    # int32 keys only (TPU has no native int64): stable lexsort by
+    # int32 keys only (the engine traces without x64): stable lexsort by
     # (block run id, k-mer code, position) makes "previous occurrence of
     # the same k-mer within the block" the preceding element.
     tot_amount = jnp.zeros(R, jnp.float32)

@@ -40,13 +40,13 @@ def _pad128(n):
     return ((n + 127) // 128) * 128
 
 
-def consensus_sequences(clusters: list[list[str]], cfg: ConsensusConfig,
-                        backend: str | None = None) -> list[str]:
+def consensus_sequences(clusters: list[list[str]],
+                        cfg: ConsensusConfig) -> list[str]:
     """clusters: list of member sequence lists (first member = backbone).
     Returns one consensus string per cluster."""
     if getattr(cfg, 'engine', 'poa') == 'poa':
-        return consensus_sequences_poa(clusters, cfg, backend)
-    cons = _consensus_once(clusters, cfg, backend)
+        return consensus_sequences_poa(clusters, cfg)
+    cons = _consensus_once(clusters, cfg)
     for _ in range(max(cfg.refine_iterations, 0)):
         refined_in = []
         for ci, members in enumerate(clusters):
@@ -55,12 +55,12 @@ def consensus_sequences(clusters: list[list[str]], cfg: ConsensusConfig,
                 refined_in.append(members)
             else:
                 refined_in.append([cons[ci]] + members)
-        cons = _consensus_once(refined_in, cfg, backend)
+        cons = _consensus_once(refined_in, cfg)
     return cons
 
 
-def _consensus_once(clusters: list[list[str]], cfg: ConsensusConfig,
-                    backend: str | None = None) -> list[str]:
+def _consensus_once(clusters: list[list[str]],
+                    cfg: ConsensusConfig) -> list[str]:
     sc = ScoringConfig(gap_open_is_first_base=False)
     jobs = []          # (cluster_idx, member_seq, backbone)
     backbones = []
@@ -106,8 +106,7 @@ def _consensus_once(clusters: list[list[str]], cfg: ConsensusConfig,
             # centre the backbone in the band: window starts 128 before
             bc = encode(b)[:L + 128]
             w[r, 128:128 + len(bc)] = bc
-        score, qend, lane, bits = tb.banded_sw_tb(q, w, qlens, sc,
-                                                  backend=backend)
+        score, qend, lane, bits = tb.banded_sw_tb(q, w, qlens, sc)
         score = np.asarray(score)
         qend = np.asarray(qend)
         lane = np.asarray(lane)
@@ -283,8 +282,8 @@ class _ProfileGraph:
         return decode(best[keep].astype(np.uint8))
 
 
-def consensus_sequences_poa(clusters: list[list[str]], cfg: ConsensusConfig,
-                            backend: str | None = None) -> list[str]:
+def consensus_sequences_poa(clusters: list[list[str]],
+                            cfg: ConsensusConfig) -> list[str]:
     """True POA consensus: per-round batched read-vs-profile alignment.
     Round r aligns every cluster's r-th member against that cluster's
     current profile graph in one device dispatch per length bucket."""
@@ -327,7 +326,7 @@ def consensus_sequences_poa(clusters: list[list[str]], cfg: ConsensusConfig,
                     Lq, float(sc.match), float(sc.mismatch),
                     float(sc.gap_extend))
             score, qend, lane, qstart, l_fin, cigars = pa.profile_align_walk(
-                q, sp, g, qlens, sc, backend=backend)
+                q, sp, g, qlens, sc)
             for row, ji in enumerate(jidx):
                 ci, codes = jobs[ji]
                 Lg = len(graphs[ci].spans)

@@ -12,7 +12,9 @@ is then a banded affine DP against a position-specific score profile:
     so columns supported by a minority (insertions of a few reads) are
     nearly free to skip — exactly the POA bypass-edge semantics.
 
-Layout matches ops/banded.py: lanes = band offsets over profile columns,
+The kernel runs as a plain ``lax.scan`` (it is off the main path: the
+opt-in consensus stage).  Layout matches ops/banded.py: lanes = band
+offsets over profile columns,
 query rows scanned sequentially, 4-bit traceback codes (ops/traceback.py
 conventions) packed 8/word.  The per-column gap costs generalize the
 lazy-F lane prefix-max: with cumulative costs  g[c] = sum_{m<=c} ext_m,
@@ -22,7 +24,7 @@ lazy-F lane prefix-max: with cumulative costs  g[c] = sum_{m<=c} ext_m,
 which is still an (exclusive) lane prefix-max, now of  H + g.
 
 Per-column scores ship as ONE int32 plane (4 x int8 fixed-point, x16):
-the kernel extracts the read-base byte with a per-row variable shift.
+each step extracts the read-base byte with a per-row variable shift.
 """
 
 from __future__ import annotations
@@ -32,36 +34,32 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
 from fslr_tpu.config import ScoringConfig
 from fslr_tpu.ops.ssw import NEG, _cummax_exclusive, _shift_right, \
-    first_gap_cost, pad_rows_pow2
+    first_gap_cost
 from fslr_tpu.ops.banded import BW, _shift_left
 from fslr_tpu.ops import traceback as tb
 
-DEF_BT = 256
 SCALE = 16.0          # fixed-point scale of the packed int8 scores
 PAD_BYTE = -128       # packed score for out-of-profile columns (-8.0)
 PAD_WORD_I32 = 0x80808080 - (1 << 32)    # 4 x PAD_BYTE as an int32
 
 
-def _prof_tb_step(H, E, s, g, jidx, fg, ext, openF, roll_fn):
+def _prof_tb_step(H, E, s, g, jidx, fg, ext, openF):
     """One query row with per-column deletion costs.
 
-    s: (BT, BW) substitution scores; g: (BT, BW) cumulative per-column
+    s: (N, BW) substitution scores; g: (N, BW) cumulative per-column
     gap-extend costs (global offsets cancel).  Returns (H, E, code)."""
-    H_up = _shift_left(H, roll_fn, jidx)
-    E_up = _shift_left(E, roll_fn, jidx)
+    H_up = _shift_left(H, jidx)
+    E_up = _shift_left(E, jidx)
     e_ext = (E_up - ext) >= (H_up - fg)
     E = jnp.maximum(E_up - ext, H_up - fg)
     diag = H + s
     Hno = jnp.maximum(jnp.maximum(diag, E), 0.0)
     C = Hno + g
-    Cm = _cummax_exclusive(C, roll_fn, jidx)
+    Cm = _cummax_exclusive(C, jidx)
     F = Cm - openF - g
-    C_prev = _shift_right(C, 1, NEG, roll_fn, jidx)
+    C_prev = _shift_right(C, 1, NEG, jidx)
     f_ext = Cm > C_prev
     Hnew = jnp.maximum(Hno, F)
     is_f = F > Hno
@@ -74,134 +72,13 @@ def _prof_tb_step(H, E, s, g, jidx, fg, ext, openF, roll_fn):
 
 
 def _extract_score(word, qcol):
-    """word: (BT, BW) int32 packed 4xint8 scores; qcol: (BT, 1) int32 read
-    base.  Returns (BT, BW) f32 substitution scores."""
+    """word: (N, BW) int32 packed 4xint8 scores; qcol: (N, 1) int32 read
+    base.  Returns (N, BW) f32 substitution scores."""
     shift = jnp.minimum(qcol, 3) * 8
     v = (word >> shift) & 0xFF
     v = v - jnp.where(v >= 128, 256, 0)
     s = v.astype(jnp.float32) * (1.0 / SCALE)
     return jnp.where(qcol >= 4, jnp.float32(PAD_BYTE / SCALE), s)
-
-
-def _prof_kernel(q_ref, splo_ref, sphi_ref, glo_ref, ghi_ref, qlen_ref,
-                 score_ref, qend_ref, lane_ref, bits_ref,
-                 H_s, E_s, bH_s, bI_s,
-                 *, fg, ext, openF):
-    BT = q_ref.shape[0]
-    blk = pl.program_id(1)
-    n_blk = pl.num_programs(1)
-    jidx = jax.lax.broadcasted_iota(jnp.int32, (BT, BW), 1).astype(jnp.float32)
-    qlens = qlen_ref[:].astype(jnp.float32)
-    roll_fn = lambda x, d: pltpu.roll(x, shift=d, axis=1)
-
-    @pl.when(blk == 0)
-    def _():
-        H_s[:] = jnp.zeros((BT, BW), jnp.float32)
-        E_s[:] = jnp.full((BT, BW), NEG, jnp.float32)
-        bH_s[:] = jnp.full((BT, BW), NEG, jnp.float32)
-        bI_s[:] = jnp.zeros((BT, BW), jnp.float32)
-
-    base_i = jnp.float32(blk * 128)
-
-    def body(s_i, carry):
-        H, E, bestH, bestI, qblk, splo, sphi, glo, ghi, pack = carry
-        qcol = qblk[:, 0:1]
-        sel = jidx < jnp.float32(128) - s_i.astype(jnp.float32)
-        word = jnp.where(sel, splo, sphi)
-        g = jnp.where(sel, glo, ghi)
-        s = _extract_score(word, qcol)
-        H, E, code = _prof_tb_step(H, E, s, g, jidx, fg, ext, openF, roll_fn)
-        gi = base_i + s_i.astype(jnp.float32)
-        upd = (H > bestH) & (gi < qlens)
-        bestH = jnp.where(upd, H, bestH)
-        bestI = jnp.where(upd, gi, bestI)
-        sub = jnp.mod(s_i, 8)
-        shift = sub * 4
-        pack = jnp.where(sub == 0, code, pack | (code << shift))
-
-        @pl.when(sub == 7)
-        def _():
-            r = s_i // 8
-            bits_ref[:, pl.ds(r, 1), :] = pack[:, None, :]
-
-        qblk = pltpu.roll(qblk, shift=127, axis=1)
-        splo = pltpu.roll(splo, shift=127, axis=1)
-        sphi = pltpu.roll(sphi, shift=127, axis=1)
-        glo = pltpu.roll(glo, shift=127, axis=1)
-        ghi = pltpu.roll(ghi, shift=127, axis=1)
-        return (H, E, bestH, bestI, qblk, splo, sphi, glo, ghi, pack)
-
-    carry = (H_s[:], E_s[:], bH_s[:], bI_s[:], q_ref[:], splo_ref[:],
-             sphi_ref[:], glo_ref[:], ghi_ref[:],
-             jnp.zeros((BT, BW), jnp.int32))
-    H, E, bestH, bestI = jax.lax.fori_loop(0, 128, body, carry)[:4]
-    H_s[:], E_s[:], bH_s[:], bI_s[:] = H, E, bestH, bestI
-
-    @pl.when(blk == n_blk - 1)
-    def _():
-        bh = bH_s[:]
-        score = jnp.max(bh, axis=1)
-        is_best = bh == score[:, None]
-        big = jnp.float32(1e9)
-        lane = jnp.min(jnp.where(is_best, jidx, big), axis=1)
-        qend = jnp.min(jnp.where(is_best, bI_s[:], big), axis=1)
-        score = jnp.maximum(score, 0.0)
-        none = score <= 0.0
-        score_ref[:] = score[:, None]
-        qend_ref[:] = jnp.where(none, 0.0, qend)[:, None].astype(jnp.int32)
-        lane_ref[:] = jnp.where(none, 0.0, lane)[:, None].astype(jnp.int32)
-
-
-@functools.partial(jax.jit, static_argnames=('fg', 'ext', 'openF', 'BT'))
-def _prof_pallas(q, sp, g, qlens, *, fg, ext, openF, BT=DEF_BT):
-    q = q.astype(jnp.int32)
-    N0, Lq = q.shape
-    assert Lq % 128 == 0 and sp.shape[1] == Lq + 256
-    N = pad_rows_pow2(N0, BT)
-    if N != N0:
-        q = jnp.pad(q, [(0, N - N0), (0, 0)], constant_values=4)
-        sp = jnp.pad(sp, [(0, N - N0), (0, 0)],
-                     constant_values=PAD_WORD_I32)
-        g = jnp.pad(g, [(0, N - N0), (0, 0)])
-        qlens = jnp.pad(qlens, [(0, N - N0)])
-    n_blk = Lq // 128
-    kernel = functools.partial(_prof_kernel, fg=fg, ext=ext, openF=openF)
-    score, qend, lane, bits = pl.pallas_call(
-        kernel,
-        grid=(N // BT, n_blk),
-        in_specs=[
-            pl.BlockSpec((BT, 128), lambda b, s: (b, s),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BT, 128), lambda b, s: (b, s),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BT, 128), lambda b, s: (b, s + 1),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BT, 128), lambda b, s: (b, s),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BT, 128), lambda b, s: (b, s + 1),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BT, 1), lambda b, s: (b, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((BT, 1), lambda b, s: (b, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BT, 1), lambda b, s: (b, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BT, 1), lambda b, s: (b, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BT, 16, BW), lambda b, s: (b, s, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((N, 1), jnp.float32),
-            jax.ShapeDtypeStruct((N, 1), jnp.int32),
-            jax.ShapeDtypeStruct((N, 1), jnp.int32),
-            jax.ShapeDtypeStruct((N, n_blk * 16, BW), jnp.int32),
-        ],
-        scratch_shapes=[pltpu.VMEM((BT, BW), jnp.float32) for _ in range(4)],
-    )(q, sp, sp, g, g, qlens.astype(jnp.int32)[:, None])
-    return score[:N0, 0], qend[:N0, 0], lane[:N0, 0], bits[:N0]
 
 
 @functools.partial(jax.jit, static_argnames=('fg', 'ext', 'openF'))
@@ -210,17 +87,14 @@ def _prof_jax(q, sp, g, qlens, *, fg, ext, openF):
     N, Lq = q.shape
     jidx = jnp.broadcast_to(jnp.arange(BW, dtype=jnp.float32)[None, :],
                             (N, BW))
-    roll_fn = lambda x, d: jnp.roll(x, d, axis=1)
-    gidx = jnp.arange(Lq)[:, None] + jnp.arange(BW)[None, :]
-    sp_wins = jnp.transpose(sp[:, gidx], (1, 0, 2))
-    g_wins = jnp.transpose(g[:, gidx], (1, 0, 2))
 
     def step(carry, inp):
         H, E, bestH, bestI = carry
-        qcol, wsp, wg, i = inp
+        qcol, i = inp
+        wsp = jax.lax.dynamic_slice_in_dim(sp, i, BW, axis=1)
+        wg = jax.lax.dynamic_slice_in_dim(g, i, BW, axis=1)
         s = _extract_score(wsp, qcol[:, None])
-        H, E, code = _prof_tb_step(H, E, s, wg, jidx, fg, ext, openF,
-                                   roll_fn)
+        H, E, code = _prof_tb_step(H, E, s, wg, jidx, fg, ext, openF)
         upd = (H > bestH) & ((i < qlens)[:, None])
         bestH = jnp.where(upd, H, bestH)
         bestI = jnp.where(upd, jnp.float32(i), bestI)
@@ -229,7 +103,7 @@ def _prof_jax(q, sp, g, qlens, *, fg, ext, openF):
     zeros = jnp.zeros((N, BW), jnp.float32)
     init = (zeros, jnp.full((N, BW), NEG), jnp.full((N, BW), NEG), zeros)
     (H, E, bestH, bestI), codes = jax.lax.scan(
-        step, init, (q.T, sp_wins, g_wins, jnp.arange(Lq)), unroll=4)
+        step, init, (q.T, jnp.arange(Lq)), unroll=4)
     codes = jnp.transpose(codes, (1, 0, 2)).reshape(N, Lq // 8, 8, BW)
     shifts = (jnp.arange(8, dtype=jnp.int32) * 4)[None, None, :, None]
     bits = jnp.sum(codes << shifts, axis=2)
@@ -244,8 +118,7 @@ def _prof_jax(q, sp, g, qlens, *, fg, ext, openF):
             jnp.where(none, 0, lane).astype(jnp.int32), bits)
 
 
-def profile_banded_tb(q, sp, g, qlens, scoring: ScoringConfig,
-                      backend: str | None = None):
+def profile_banded_tb(q, sp, g, qlens, scoring: ScoringConfig):
     """Banded read-vs-profile alignment emitting traceback bits.
 
     Args: q (N, Lq) uint8 read codes (4 = pad); sp (N, Lq+256) int32 packed
@@ -258,55 +131,25 @@ def profile_banded_tb(q, sp, g, qlens, scoring: ScoringConfig,
     sp = jnp.asarray(sp, jnp.int32)
     g = jnp.asarray(g, jnp.float32)
     qlens = jnp.asarray(qlens, jnp.int32)
-    if backend == 'pallas_interpret':
-        with pltpu.force_tpu_interpret_mode():
-            return _prof_pallas(q, sp, g, qlens, **kw)
-    if backend == 'jax' or (backend is None
-                            and jax.default_backend() != 'tpu'):
-        return _prof_jax(q, sp, g, qlens, **kw)
-    return _prof_pallas(q, sp, g, qlens, **kw)
+    return _prof_jax(q, sp, g, qlens, **kw)
 
 
-@functools.partial(jax.jit, static_argnames=('fg', 'ext', 'openF',
-                                             'use_pallas'))
-def _prof_walk_impl(q, sp, g, qlens, *, fg, ext, openF, use_pallas):
+@functools.partial(jax.jit, static_argnames=('fg', 'ext', 'openF'))
+def _prof_walk_impl(q, sp, g, qlens, *, fg, ext, openF):
     kw = dict(fg=fg, ext=ext, openF=openF)
-    if use_pallas:
-        score, qend, lane, bits = _prof_pallas(q, sp, g, qlens, **kw)
-    else:
-        score, qend, lane, bits = _prof_jax(q, sp, g, qlens, **kw)
-    T = bits.shape[1] * 8 + bits.shape[2]
-    emits, n_ops, i_fin, l_fin = tb._walk_device(bits, qend, lane, T)
-    packed = jnp.stack([score.astype(jnp.int32), qend, lane,
-                        i_fin + 1, l_fin, n_ops.astype(jnp.int32)])
-    N = emits.shape[0]
-    e2 = jnp.where(emits == 255, 3, emits).astype(jnp.int32)
-    e2 = e2.reshape(N, T // 4, 4)
-    weights = jnp.array([1, 4, 16, 64], jnp.int32)
-    emits_packed = jnp.sum(e2 * weights[None, None, :],
-                           axis=2).astype(jnp.uint8)
+    score, qend, lane, bits = _prof_jax(q, sp, g, qlens, **kw)
+    packed, emits_packed = tb.walk_packed(score, qend, lane, bits)
     return packed, emits_packed, score
 
 
-def profile_align_walk(q, sp, g, qlens, scoring: ScoringConfig,
-                       backend: str | None = None):
+def profile_align_walk(q, sp, g, qlens, scoring: ScoringConfig):
     """Kernel + device traceback walk in one dispatch.  Returns host-side
     (score f32, qend, lane, qstart, l_fin, cigars)."""
-    use_pallas = not (backend in ('jax',) or (backend is None and
-                                              jax.default_backend() != 'tpu'))
     kw = dict(fg=first_gap_cost(scoring), ext=float(scoring.gap_extend),
-              openF=first_gap_cost(scoring) - float(scoring.gap_extend),
-              use_pallas=use_pallas)
-    if backend == 'pallas_interpret':
-        with pltpu.force_tpu_interpret_mode():
-            packed, emits, score = _prof_walk_impl(
-                jnp.asarray(q), jnp.asarray(sp, jnp.int32),
-                jnp.asarray(g, jnp.float32), jnp.asarray(qlens, jnp.int32),
-                **{**kw, 'use_pallas': True})
-    else:
-        packed, emits, score = _prof_walk_impl(
-            jnp.asarray(q), jnp.asarray(sp, jnp.int32),
-            jnp.asarray(g, jnp.float32), jnp.asarray(qlens, jnp.int32), **kw)
+              openF=first_gap_cost(scoring) - float(scoring.gap_extend))
+    packed, emits, score = _prof_walk_impl(
+        jnp.asarray(q), jnp.asarray(sp, jnp.int32),
+        jnp.asarray(g, jnp.float32), jnp.asarray(qlens, jnp.int32), **kw)
     from fslr_tpu import instrument
     instrument.add_cells(int(np.asarray(qlens, np.int64).sum())
                          * int(np.shape(g)[-1]), 'profile')

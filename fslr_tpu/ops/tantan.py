@@ -15,8 +15,9 @@ sequences") as a batched forward-backward scan over fixed-shape read arrays:
 
 Positions with posterior P(repeat) >= posterior_threshold are masked.  The
 scan state is (B, P+1) per position; the forward pass stores per-position
-normalized state vectors in HBM (they are consumed by the backward pass),
-so peak memory is O(B * L * P) — callers bucket batch sizes accordingly.
+normalized state vectors in device memory (they are consumed by the
+backward pass), so peak memory is O(B * L * P) — callers bucket batch
+sizes accordingly.  This scan is the only implementation on every backend.
 """
 
 from __future__ import annotations
@@ -25,9 +26,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
 from fslr_tpu.config import JunkFilterConfig
 
 
@@ -113,274 +111,9 @@ def _mask_impl(seq, lens, P, start_total, end_p, decay, match_p, thresh):
     return mask & (pos < lens[:, None]) & (seq != 4)
 
 
-# ---------------------------------------------------------------------------
-# Pallas TPU kernel
-# ---------------------------------------------------------------------------
-#
-# The lax.scan formulation above keeps the HMM correct but leaves the chip
-# idle: every position is ~15 vector ops on a (B, P) state with two HBM
-# round-trips for the stacked per-position posteriors.  The kernel keeps the
-# whole forward-backward in VMEM: periods live on lanes (P=100 of 128), a
-# block of SUB reads lives on sublanes, and the position scan is a
-# fori_loop peeling sequence columns from 128-wide VMEM blocks (the
-# lane-aligned dynamic-slice pattern of ops/ssw.py).  The backward pass
-# needs forward states in reverse order, so the forward pass checkpoints
-# its carry every C=256 positions and the backward pass re-derives each
-# chunk's per-position (fr, fb, emission) into VMEM scratch before
-# consuming it in reverse — posteriors never touch HBM; only the final
-# 0/1 mask is written out.
-
-# (reads per grid block, checkpoint interval): the HMM step is a serial
-# dependency chain (two cross-lane reductions per position), so wider SUB
-# hides op latency across independent reads; VMEM caps SUB*CHUNK and the
-# checkpoint count L/CHUNK.  All length buckets are multiples of 256
-# (config.BatchConfig.length_buckets).
-def _block_params(L: int) -> tuple[int, int]:
-    if L <= 4096:
-        return 64, 128
-    if L <= 16384:
-        return 32, 128
-    return 16, 256
-
-
-# Positions between carry rescales (f32 range guard: per-step growth is
-# bounded by max emission ratio 3.6 -> 3.6^16 ~ 9e8; shrink by 0.133^16
-# ~ 1e-14 — both comfortably inside f32 between rescales).
-_RESCALE = 16
-
-
-def _mask_kernel(seq_ref, sd_ref, out_ref, frb, erb, ckf, ckw, *,
-                 L, SUB, C, P, stay_b, stay_r, end_p, match_ratio,
-                 mismatch_ratio, thresh):
-    nchunk = L // C
-    lane = jax.lax.broadcasted_iota(jnp.int32, (SUB, 128), 1)
-    dmaskf = (lane < P).astype(jnp.float32)
-    start_d = jnp.broadcast_to(sd_ref[:], (SUB, 128))
-
-    def emission(win, xcol):
-        has_n = (xcol == 4) | (win == 4)
-        er = jnp.where(win == xcol, match_ratio, mismatch_ratio)
-        er = jnp.where(has_n, 1.0, er)
-        er = jnp.where(win == 5, 0.0, er)
-        return er * dmaskf            # lanes >= P are dead states
-
-    def fwd_step(fb, fr, win, xcol):
-        # _mask_impl.fwd_step WITHOUT per-step normalization: the
-        # posterior is a ratio of same-step alpha*beta products, so a
-        # common scale on (fb, fr) cancels exactly — normalizing every
-        # position (a cross-lane reduce + two divides in the serial
-        # chain) only guards the f32 range, which a rescale every
-        # _RESCALE positions does just as well.
-        er = emission(win, xcol)
-        fr_new = (fr * stay_r + fb * start_d) * er
-        fb_new = fb * stay_b + jnp.sum(fr, axis=1, keepdims=True) * end_p
-        win = jnp.where(lane == 0, xcol, pltpu.roll(win, shift=1, axis=1))
-        return fb_new, fr_new, win, er
-
-    def rescale_f(fb, fr):
-        z = fb + jnp.sum(fr, axis=1, keepdims=True)
-        r = 1.0 / jnp.maximum(z, 1e-30)
-        return fb * r, fr * r
-
-    def rescale_b(bb, br):
-        z = bb + jnp.sum(br, axis=1, keepdims=True)
-        r = 1.0 / jnp.maximum(z, 1e-30)
-        return bb * r, br * r
-
-    def seq_blk(j, b):
-        off = pl.multiple_of(j * C + b * 128, 128)
-        return seq_ref[:, pl.ds(off, 128)]
-
-    # fb rides in dead lane 127 (P <= 126 always leaves it free), so every
-    # buffer store/load is ONE full-tile (SUB, 128) access on the leading
-    # (untiled) dim — a mid-dim pl.ds store touches a single sublane of
-    # every tile (read-modify-write) and was ~5x slower.
-    def pack_fb(fb, fr):
-        return jnp.where(lane == 127, fb, fr)
-
-    # ---- forward: carry only, checkpoint every C positions -------------
-    def fwd_chunk(j, carry):
-        fb, fr, win = carry
-        ckf[pl.ds(j, 1)] = pack_fb(fb, fr)[None]
-        ckw[pl.ds(j, 1)] = win[None]
-
-        def blk_loop(b, c2):
-            fb, fr, win = c2
-
-            def peel(si, c3):
-                fb, fr, win, blk = c3
-                fb, fr, win, _ = fwd_step(fb, fr, win, blk[:, 0:1])
-                return fb, fr, win, pltpu.roll(blk, shift=127, axis=1)
-
-            def grp(g, c3):
-                fb, fr, win, blk = jax.lax.fori_loop(
-                    g * _RESCALE, (g + 1) * _RESCALE, peel, c3)
-                fb, fr = rescale_f(fb, fr)
-                return fb, fr, win, blk
-
-            fb, fr, win, _ = jax.lax.fori_loop(
-                0, 128 // _RESCALE, grp, (fb, fr, win, seq_blk(j, b)))
-            return fb, fr, win
-
-        return jax.lax.fori_loop(0, C // 128, blk_loop, (fb, fr, win))
-
-    init = (jnp.ones((SUB, 1), jnp.float32),
-            jnp.zeros((SUB, 128), jnp.float32),
-            jnp.full((SUB, 128), 5, jnp.int32))
-    jax.lax.fori_loop(0, nchunk, fwd_chunk, init)
-
-    # ---- backward: per chunk, recompute forward then walk back ---------
-    def bwd_chunk(jj, carry):
-        bb, br = carry
-        j = nchunk - 1 - jj
-        row = ckf[pl.ds(j, 1)][0]
-        fb = row[:, 127:128]
-        fr = row * dmaskf
-        win = ckw[pl.ds(j, 1)][0]
-
-        def re_blk(b, c2):
-            fb, fr, win = c2
-
-            def peel(si, c3):
-                fb, fr, win, blk = c3
-                t = b * 128 + si
-                fb2, fr2, win2, er = fwd_step(fb, fr, win, blk[:, 0:1])
-                erb[pl.ds(t, 1)] = er[None]
-                frb[pl.ds(t, 1)] = pack_fb(fb2, fr2)[None]
-                return fb2, fr2, win2, pltpu.roll(blk, shift=127, axis=1)
-
-            def grp(g, c3):
-                fb, fr, win, blk = jax.lax.fori_loop(
-                    g * _RESCALE, (g + 1) * _RESCALE, peel, c3)
-                fb, fr = rescale_f(fb, fr)
-                return fb, fr, win, blk
-
-            fb, fr, win, _ = jax.lax.fori_loop(
-                0, 128 // _RESCALE, grp, (fb, fr, win, seq_blk(j, b)))
-            return fb, fr, win
-
-        jax.lax.fori_loop(0, C // 128, re_blk, (fb, fr, win))
-
-        def bwd_blk(bi, c2):
-            bb, br = c2
-            b = C // 128 - 1 - bi
-
-            def step(si, c3):
-                bb, br, macc = c3
-                s = 127 - si
-                t = b * 128 + s
-                fr_t = frb[pl.ds(t, 1)][0]       # fb in lane 127
-                er_t = erb[pl.ds(t, 1)][0]
-                fb_t = fr_t[:, 127:128]
-                # emit posterior at position t from the INCOMING beta
-                # (jax bwd_step emits the carry before updating); br is 0
-                # on lanes >= P, so the packed fb lane never reaches num.
-                # post >= thresh is evaluated divide-free as
-                # num >= thresh * max(den, eps) (num, den >= 0).
-                num = jnp.sum(fr_t * br, axis=1, keepdims=True)
-                den = num + fb_t * bb
-                bit = (num >= thresh * jnp.maximum(den, 1e-30)
-                       ).astype(jnp.float32)
-                macc = jnp.where(lane == s, bit, macc)
-                w = er_t * br
-                bb_new = (stay_b * bb
-                          + jnp.sum(start_d * w, axis=1, keepdims=True))
-                br_new = (stay_r * w + end_p * bb) * dmaskf
-                return bb_new, br_new, macc
-
-            def grp(g, c3):
-                bb, br, macc = jax.lax.fori_loop(
-                    g * _RESCALE, (g + 1) * _RESCALE, step, c3)
-                bb, br = rescale_b(bb, br)
-                return bb, br, macc
-
-            bb, br, macc = jax.lax.fori_loop(
-                0, 128 // _RESCALE, grp,
-                (bb, br, jnp.zeros((SUB, 128), jnp.float32)))
-            off = pl.multiple_of(j * C + b * 128, 128)
-            out_ref[:, pl.ds(off, 128)] = macc.astype(jnp.int32)
-            return bb, br
-
-        return jax.lax.fori_loop(0, C // 128, bwd_blk, (bb, br))
-
-    # beta init: ones over live states (jax: ones((B,)), ones((B, P)))
-    jax.lax.fori_loop(0, nchunk, bwd_chunk,
-                      (jnp.ones((SUB, 1), jnp.float32), dmaskf))
-
-
-@functools.partial(
-    jax.jit, static_argnames=('P', 'stay_b', 'stay_r', 'end_p',
-                              'match_ratio', 'mismatch_ratio', 'thresh',
-                              'interpret'))
-def _mask_pallas(seq, lens, start_d, P, stay_b, stay_r, end_p,
-                 match_ratio, mismatch_ratio, thresh, interpret=False):
-    B0, L = seq.shape
-    SUB, C = _block_params(L)
-    B = (B0 + SUB - 1) // SUB * SUB
-    seq32 = seq.astype(jnp.int32)
-    if B != B0:
-        seq32 = jnp.pad(seq32, ((0, B - B0), (0, 0)), constant_values=4)
-    sd = jnp.zeros((1, 128), jnp.float32).at[0, :start_d.shape[0]].set(
-        start_d)
-    kern = functools.partial(
-        _mask_kernel, L=L, SUB=SUB, C=C,
-        P=P, stay_b=stay_b, stay_r=stay_r, end_p=end_p,
-        match_ratio=match_ratio, mismatch_ratio=mismatch_ratio,
-        thresh=thresh)
-    out = pl.pallas_call(
-        kern,
-        out_shape=jax.ShapeDtypeStruct((B, L), jnp.int32),
-        grid=(B // SUB,),
-        in_specs=[
-            pl.BlockSpec((SUB, L), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 128), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((SUB, L), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=(
-            [pltpu.VMEM((C, SUB, 128), jnp.float32)] * 2
-            + [pltpu.VMEM((L // C, SUB, 128), jnp.float32),
-               pltpu.VMEM((L // C, SUB, 128), jnp.int32)]),
-        interpret=interpret,
-    )(seq32, sd)
-    mask = out[:B0] != 0
-    pos = jnp.arange(L)[None, :]
-    return mask & (pos < lens[:, None]) & (seq != 4)
-
-
-def _start_d_vec(P, start_total, decay):
-    """The b->r_d transition vector, same jnp ops as _mask_impl."""
-    d_idx = jnp.arange(1, P + 1, dtype=jnp.float32)
-    sd = decay ** d_idx
-    return sd / jnp.sum(sd) * start_total
-
-
-def repeat_mask(seq, lens, cfg: JunkFilterConfig, backend: str | None = None):
+def repeat_mask(seq, lens, cfg: JunkFilterConfig):
     """Boolean repeat mask (B, L) for encoded reads (uint8, 4 = N)."""
-    seq = jnp.asarray(seq)
-    lens = jnp.asarray(lens, jnp.int32)
-    L = seq.shape[1]
-    from fslr_tpu.ops.ssw import _use_pallas
-    use_pallas = (backend in ('pallas', 'pallas_interpret')
-                  or (_use_pallas(backend)
-                      and L % 256 == 0 and cfg.mask_max_period <= 126))
-    if use_pallas:
-        sd = _start_d_vec(cfg.mask_max_period, cfg.mask_repeat_start,
-                          cfg.mask_decay)
-        kw = dict(P=cfg.mask_max_period,
-                  stay_b=1.0 - cfg.mask_repeat_start,
-                  stay_r=1.0 - cfg.mask_repeat_end,
-                  end_p=cfg.mask_repeat_end,
-                  match_ratio=cfg.mask_match_prob / 0.25,
-                  mismatch_ratio=(1.0 - cfg.mask_match_prob) / 3.0 / 0.25,
-                  thresh=cfg.mask_posterior_threshold)
-        if backend == 'pallas_interpret':
-            with pltpu.force_tpu_interpret_mode():
-                return _mask_pallas(seq, lens, sd, interpret=True, **kw)
-        return _mask_pallas(seq, lens, sd, **kw)
     return _mask_impl(
-        seq, lens, cfg.mask_max_period,
+        jnp.asarray(seq), jnp.asarray(lens, jnp.int32), cfg.mask_max_period,
         cfg.mask_repeat_start, cfg.mask_repeat_end, cfg.mask_decay,
         cfg.mask_match_prob, cfg.mask_posterior_threshold)

@@ -6,10 +6,11 @@ function so it can be (a) compile-checked on one chip and (b) shard_mapped
 over a read-sharded mesh with psum'd counters for multi-chip runs
 (SURVEY.md sections 2C and 5.8).
 
-The step intentionally uses the pure-JAX kernel paths (ops.ssw._sw_jax /
-ops.banded pure-jax path) so the same program compiles on CPU meshes (the
-standard xla_force_host_platform_device_count trick) and on TPU; the
-pallas variants are drop-in replacements on the TPU execution path.
+The step uses the plain JAX kernel paths (ops.ssw._sw_jax / the
+ops.banded plain path) so the same program compiles on CPU meshes (the
+standard xla_force_host_platform_device_count trick) and on the GPU; the
+CUDA kernels (ops/cuda.py) are drop-in replacements on the pipeline's
+GPU route.
 
 Stages fused here:
   1. tantan-equivalent repeat mask + junk-block decision (stage A core);

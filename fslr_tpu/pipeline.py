@@ -28,7 +28,6 @@ import sys
 import threading
 
 import numpy as np
-import pandas as pd
 
 from fslr_tpu.config import PipelineConfig
 from fslr_tpu.instrument import StageTimer
@@ -38,6 +37,7 @@ from fslr_tpu.io.fastq import glob_input_files, read_reads
 from fslr_tpu.panel import load_panel
 from fslr_tpu.stages import (align as align_stage, cluster as cluster_stage,
                              filter_junk, find_primers, mapping_table)
+from fslr_tpu.table import Table, read_tsv, write_tsv
 
 
 def _load_indexed(path: str, k: int):
@@ -215,13 +215,11 @@ def _run_pipeline_multihost(config: PipelineConfig,
     base = os.path.join(config.out, config.name)
     beds = [os.path.join(config.out, f'{config.name}__p{i}.mappings.bed')
             for i in range(nproc)]
-    dfs = [pd.read_csv(p, sep='\t') for p in beds]
-    df = pd.concat(dfs, ignore_index=True)
+    df = Table.concat([read_tsv(p) for p in beds])
     # ties in the final keys only occur within one read, and a read lives
     # in exactly one process, so a stable re-sort reproduces the
     # single-process order exactly
-    df = df.sort_values(['n_alignments', 'qname', 'qstart'],
-                        ascending=[False, True, True], kind='stable')
+    df = df.sort(['n_alignments', 'qname', 'qstart'], [False, True, True])
     mapping_table.write_mappings_bed(df, f'{base}.mappings.bed')
 
     _merge_bams_streamed(
@@ -560,10 +558,8 @@ def _run_pipeline(config: PipelineConfig, backend: str | None = None,
                 # ties in the final keys only occur within one read, and a
                 # read lives in exactly one chunk, so a stable re-sort of
                 # the concatenation reproduces the unchunked order exactly
-                df = pd.concat(dfs, ignore_index=True)
-                df = df.sort_values(
-                    ['n_alignments', 'qname', 'qstart'],
-                    ascending=[False, True, True], kind='stable')
+                df = Table.concat(dfs).sort(
+                    ['n_alignments', 'qname', 'qstart'], [False, True, True])
             else:
                 df = mapping_table.mapping_table(
                     align_stage.Alignments(
@@ -594,16 +590,7 @@ def _run_pipeline(config: PipelineConfig, backend: str | None = None,
     if not config.skip_clustering:
         print('Making clusters')
         with timer.stage('read_mappings'):
-            try:        # pyarrow parses the seq-heavy TSV ~2x faster
-                bed_file = pd.read_csv(f'{basename}.mappings.bed',
-                                       sep='\t', engine='pyarrow')
-            except Exception as e:
-                # fall back to the default parser, but LOUDLY: a malformed
-                # bed failing both parsers should not be blamed on pyarrow
-                print(f'WARNING: pyarrow bed parse failed '
-                      f'({type(e).__name__}: {e}); using default parser',
-                      file=sys.stderr)
-                bed_file = pd.read_csv(f'{basename}.mappings.bed', sep='\t')
+            bed_file = read_tsv(f'{basename}.mappings.bed')
             chr_lengths = bamio.get_chromosome_lengths(
                 f'{basename}.bwa_dodi.bam')
         with timer.stage('clustering'):
@@ -613,11 +600,9 @@ def _run_pipeline(config: PipelineConfig, backend: str | None = None,
             print('No clusters were found.')
             return
         with timer.stage('write_cluster_beds'):
-            res.cluster_bed.to_csv(f'{basename}.mappings.cluster.bed',
-                                   index=False, sep='\t')
-            res.representative_bed.to_csv(
-                f'{basename}.mappings.representative.bed', index=False,
-                sep='\t')
+            write_tsv(res.cluster_bed, f'{basename}.mappings.cluster.bed')
+            write_tsv(res.representative_bed,
+                      f'{basename}.mappings.representative.bed')
 
         if config.run_consensus:
             print('Creating consensus sequences')

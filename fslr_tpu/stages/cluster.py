@@ -41,10 +41,11 @@ import sys
 from collections import namedtuple
 
 import numpy as np
-import pandas as pd
 
+from fslr_tpu import instrument
 from fslr_tpu.config import ClusterConfig
 from fslr_tpu.ops import capwalk, components, jaccard
+from fslr_tpu.table import Table
 
 # max encounters materialized per enumeration slice (see query_graph)
 ENCOUNTER_SLICE_CAP = 32 * 1024 * 1024
@@ -60,12 +61,12 @@ def rename_chromosomes(bed_file, chromosome_lengths, chromosome_mask):
         num = (int(x[3:]) if x[:3] == 'chr' and x[3:].isdigit()
                else float('inf'))
         return (num, x)
-    chromosome_names = sorted(set(bed_file['chrom'].unique().tolist()),
-                              key=sort_key)
+    bed_file = Table.of(bed_file).copy()
+    chromosome_names = sorted(set(bed_file['chrom'].tolist()), key=sort_key)
     cmap = {name: i + 1 for i, name in enumerate(chromosome_names)}
     chr_lengths = {cmap.get(k): v for k, v in chromosome_lengths.items()}
-    bed_file = bed_file.copy()
-    bed_file['chrom'] = bed_file['chrom'].map(cmap)
+    bed_file['chrom'] = np.array([cmap[x] for x in bed_file['chrom'].tolist()],
+                                 np.int64)
     chromosome_mask = [cmap.get(x) if x != 'subtelomere' else x
                        for x in chromosome_mask]
     return bed_file, chr_lengths, chromosome_mask, cmap
@@ -74,32 +75,59 @@ def rename_chromosomes(bed_file, chromosome_lengths, chromosome_mask):
 def chrom_to_str(bed_df, cmap):
     num_to_str = {v: k for k, v in cmap.items()}
     bed_df = bed_df.copy()
-    bed_df['chrom'] = bed_df['chrom'].map(num_to_str)
+    bed_df['chrom'] = np.array(
+        [num_to_str[x] for x in bed_df['chrom'].tolist()], object)
     return bed_df
 
 
 def delete_false(bed_file):
-    return bed_file[~bed_file['qname'].str.contains('False')]
+    bed_file = Table.of(bed_file)
+    return bed_file.take(np.array(
+        ['False' not in q for q in bed_file['qname'].tolist()], bool))
+
+
+def _group_codes(keys: np.ndarray):
+    """(codes, n_groups) with codes[i] the group of row i."""
+    _, inv = np.unique(keys, return_inverse=True)
+    inv = inv.reshape(-1)
+    return inv, (int(inv.max()) + 1 if len(inv) else 0)
 
 
 def keep_fillings(bed_file):
-    qn = bed_file['qname']
-    bread = ~qn.duplicated(keep='first') | ~qn.duplicated(keep='last')
-    bed_file = bed_file[~bread].copy()
-    grouped = bed_file.groupby('qname')
-    bed_file['qlen2'] = (grouped['qend'].transform('max')
-                         - grouped['qstart'].transform('min'))
+    """Drop each read's first and last row (the primer 'bread'), keep the
+    rows in between, and add qlen2 = max(qend) - min(qstart) per read."""
+    bed_file = Table.of(bed_file)
+    codes, n = _group_codes(bed_file['qname'])
+    rows = np.arange(len(codes))
+    first = np.full(n, len(codes))
+    np.minimum.at(first, codes, rows)
+    last = np.full(n, -1)
+    np.maximum.at(last, codes, rows)
+    filling = (first[codes] != rows) & (last[codes] != rows)
+    bed_file = bed_file.take(filling)
+    codes, n = _group_codes(bed_file['qname'])
+    qe = bed_file['qend']
+    qs = bed_file['qstart']
+    hi = np.full(n, np.iinfo(np.int64).min, qe.dtype) \
+        if qe.dtype.kind in 'iu' else np.full(n, -np.inf)
+    np.maximum.at(hi, codes, qe)
+    lo = np.full(n, np.iinfo(np.int64).max, qs.dtype) \
+        if qs.dtype.kind in 'iu' else np.full(n, np.inf)
+    np.minimum.at(lo, codes, qs)
+    bed_file['qlen2'] = hi[codes] - lo[codes]
     return bed_file
 
 
 def calc_coverage(bed_file, chromosome_lengths):
     coverage = {}
-    for chrom, group in bed_file.groupby('chrom'):
+    chroms = bed_file['chrom']
+    for chrom in np.unique(chroms).tolist():
         if chrom not in chromosome_lengths:
             continue
+        sel = chroms == chrom
         c = np.zeros(chromosome_lengths[chrom] + 1)
-        np.add.at(c, group['rstart'].values, 1)
-        np.add.at(c, group['rend'].values, -1)
+        np.add.at(c, bed_file['rstart'][sel], 1)
+        np.add.at(c, bed_file['rend'][sel], -1)
         coverage[chrom] = np.cumsum(c)
     return coverage
 
@@ -129,15 +157,16 @@ def mask_sequences(data, mask, chromosome_lengths, threshold=500_000):
 
 def prepare_data(bed_df, cluster_mask, chromosome_lengths,
                  threshold=500_000):
-    bed_df = bed_df.copy()
+    bed_df = Table.of(bed_df).copy()
     bed_df['start'] = np.minimum(bed_df['rstart'], bed_df['rend'])
     bed_df['end'] = np.maximum(bed_df['rstart'], bed_df['rend'])
     bed_df['middle'] = bed_df['aln_size'] // 2 + bed_df['start']
-    bed_df = bed_df.sort_values('start', kind='stable')
+    bed_df = bed_df.sort(['start'])
     columns = ['chrom', 'start', 'end', 'aln_size', 'qname', 'n_alignments',
                'qlen2', 'middle']
     data = [IntervalItem(*vals) for vals in
-            zip(*(bed_df[c] for c in columns), bed_df.index)]
+            zip(*(bed_df[c].tolist() for c in columns),
+                bed_df.index.tolist())]
     if cluster_mask:
         data = mask_sequences(data, cluster_mask, chromosome_lengths,
                               threshold)
@@ -314,12 +343,14 @@ def query_graph(data, overlap_cutoff, jaccard_cutoffs, edge_threshold,
         # host-side)
         # scale path: enumeration + per-pair min-reduce AND the capped
         # traversal replay on device
+        instrument.record_path('encounter_build', 'device')
         return _query_graph_device(
             jobs, R, max_itv, max_nc, trav_scale, qlen2_arr, naln_arr,
             overlap_cutoff, jaccard_cutoffs, edge_threshold, qlen_diff,
             n_aln_diff, cfg, qnames_order, over, dev_arrays, M,
             host_value, host_arrays)
 
+    instrument.record_path('encounter_build', 'host')
     # Bounded-memory host enumeration: the raw encounter stream is
     # quadratic in recurrent-breakpoint group size, so interval ranges are
     # processed in slices capped at ENCOUNTER_SLICE_CAP encounters, each
@@ -700,8 +731,11 @@ def _emit_from_pairs(eq_e, eo_e, j_e, qnames_order):
         if name_b not in node_pos:
             node_pos[name_b] = len(node_pos)
         edges.append((name_a, name_b))
-    match_df = pd.DataFrame(
-        match, columns=['query1', 'query2', 'jaccard_similarity'])
+    rows = list(match)
+    match_df = Table({
+        'query1': np.array([r[0] for r in rows], object),
+        'query2': np.array([r[1] for r in rows], object),
+        'jaccard_similarity': np.array([r[2] for r in rows], np.float64)})
     return match_df, edges, node_pos
 
 
@@ -827,31 +861,41 @@ def get_subgraphs(edges, node_pos):
 def choose_alignment(bed_file):
     """Representative reads: per cluster, keep every row of the read whose
     alignments have the highest mean alignment_score; ties resolve to the
-    earliest row (pandas idxmax), matching the reference's per-cluster scan
-    (/root/reference/fslr/cluster.py:237-254).  Vectorized: transform-mean
-    plus one grouped idxmax instead of a Python loop over clusters."""
+    earliest row, matching the reference's per-cluster scan
+    (/root/reference/fslr/cluster.py:237-254).  The rows come back with
+    their reads' mean score as ``avg_alignment_score``."""
     bed = bed_file.copy()
-    bed['avg_alignment_score'] = (
-        bed.groupby('qname')['alignment_score'].transform('mean'))
-    winner_rows = bed.groupby('cluster')['avg_alignment_score'].idxmax()
-    winners = set(bed.loc[winner_rows, 'qname'])
-    return bed[bed['qname'].isin(winners)]
+    q_codes, nq = _group_codes(bed['qname'])
+    score = bed['alignment_score'].astype(np.float64)
+    avg = (np.bincount(q_codes, score, nq)
+           / np.bincount(q_codes, minlength=nq))[q_codes]
+    bed['avg_alignment_score'] = avg
+    c_codes, nc = _group_codes(bed['cluster'])
+    # first row of each cluster holding its maximum mean score
+    order = np.lexsort((np.arange(len(bed)), -avg, c_codes))
+    first = np.ones(len(order), bool)
+    first[1:] = c_codes[order[1:]] != c_codes[order[:-1]]
+    winners = set(bed['qname'][order[first]].tolist())
+    return bed.take(np.array([q in winners for q in bed['qname'].tolist()],
+                             bool))
 
 
 @dataclasses.dataclass
 class ClusterResult:
-    cluster_bed: pd.DataFrame | None
-    representative_bed: pd.DataFrame | None
+    cluster_bed: Table | None
+    representative_bed: Table | None
     no_clusters: bool
     subgraphs: list | None = None
 
 
-def cluster_stage(bed_file: pd.DataFrame, chromosome_lengths: dict,
+def cluster_stage(bed_file, chromosome_lengths: dict,
                   cfg: ClusterConfig) -> ClusterResult:
-    """The main.py:207-352 clustering block."""
+    """The main.py:207-352 clustering block.  ``bed_file`` is the mappings
+    table (a Table, or any frame :meth:`Table.of` accepts)."""
+    bed_file = Table.of(bed_file)
     chromosome_mask = set()
     if cfg.cluster_mask:
-        allowed = set(bed_file['chrom'])
+        allowed = set(bed_file['chrom'].tolist())
         for item in cfg.cluster_mask:
             if item in allowed or item == 'subtelomere':
                 chromosome_mask.add(item)
@@ -882,25 +926,30 @@ def cluster_stage(bed_file: pd.DataFrame, chromosome_lengths: dict,
     if len(subgraphs) == n_nodes:       # true iff no edges
         return ClusterResult(None, None, True, subgraphs)
 
-    subg_df = pd.DataFrame(subgraphs).T
-    subg_long = pd.melt(subg_df, var_name='cluster',
-                        value_name='qname').dropna()
-    subg_long['cluster'] = pd.to_numeric(subg_long['cluster'],
-                                         errors='coerce')
-    n_reads = subg_long['cluster'].value_counts().rename('n_reads')
-    subg_long_reads = pd.merge(subg_long, n_reads, on='cluster')
-
-    bed_file = bed_file.merge(subg_long_reads, on='qname', how='left')
-    n_cluster = max(subg_long_reads['cluster']) + 1
-    singles = bed_file[~bed_file['qname'].isin(subg_long_reads['qname'])][
-        'qname'].unique()
-    all_reads = n_cluster + len(singles)
-    singleton = pd.DataFrame({'qname': singles.tolist(),
-                              'cluster': range(n_cluster, all_reads)})
-    bed_file['cluster'] = bed_file['cluster'].fillna(
-        bed_file['qname'].map(singleton.set_index('qname')['cluster']))
-    bed_file['n_reads'] = bed_file['n_reads'].fillna(1)
-
+    # cluster id = subgraph position, n_reads = its size; reads in no
+    # subgraph become singleton clusters numbered after the subgraphs in
+    # first-appearance order.  As in the reference's left merge + fillna,
+    # the two columns are integers when every read is clustered and
+    # floats otherwise.
+    member = {q: k for k, grp in enumerate(subgraphs) for q in grp}
+    sizes = [len(grp) for grp in subgraphs]
+    qnames = bed_file['qname'].tolist()
+    cl = [member.get(q) for q in qnames]
+    if all(c is not None for c in cl):
+        cluster = np.array(cl, np.int64)
+        n_reads = np.array([sizes[c] for c in cl], np.int64)
+    else:
+        single_id: dict = {}
+        cluster = np.empty(len(cl), np.float64)
+        n_reads = np.ones(len(cl), np.float64)
+        for i, (q, c) in enumerate(zip(qnames, cl)):
+            if c is None:
+                c = single_id.setdefault(q, len(subgraphs) + len(single_id))
+            else:
+                n_reads[i] = sizes[c]
+            cluster[i] = c
+    bed_file = Table({**bed_file.to_dict(), 'cluster': cluster,
+                      'n_reads': n_reads})
     bed_file = chrom_to_str(bed_file, cmap)
     rep = choose_alignment(bed_file)
     return ClusterResult(bed_file, rep, False, subgraphs)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import glob
 import os
 
-import pandas as pd
+import numpy as np
 
 from fslr_tpu.config import PipelineConfig
 from fslr_tpu.io import bam as bamio
@@ -33,6 +33,7 @@ from fslr_tpu.ops import poa
 from fslr_tpu.panel import PrimerPanel
 from fslr_tpu.stages import (align as align_stage, filter_junk,
                              find_primers, mapping_table)
+from fslr_tpu.table import Table, read_tsv, write_tsv
 
 
 def _read_primer_names(qname: str) -> set[str]:
@@ -53,20 +54,18 @@ def write_purity_csv(subgraphs, cons_seqs, primer_names, path: str):
     (README.rst:137 — the stage is commented out in the reference release,
     so the column layout is this engine's; the documented fields are all
     present)."""
-    rows = []
-    for num, (clust, seq) in enumerate(zip(subgraphs, cons_seqs)):
-        row = {'cluster': num, 'n_reads': len(clust), 'consensus': seq}
-        members = list(clust)
-        for p in primer_names:
-            n_with = sum(1 for q in members if p in _read_primer_names(q))
-            row[f'{p}_proportion'] = (n_with / len(members)) if members \
-                else 0.0
-        rows.append(row)
-    pd.DataFrame(rows).to_csv(path, index=False)
+    cols = {'cluster': np.arange(len(subgraphs), dtype=np.int64),
+            'n_reads': np.array([len(c) for c in subgraphs], np.int64),
+            'consensus': np.array(list(cons_seqs), object)}
+    for p in primer_names:
+        cols[f'{p}_proportion'] = np.array(
+            [sum(1 for q in c if p in _read_primer_names(q)) / len(c)
+             if c else 0.0 for c in subgraphs], np.float64)
+    write_tsv(Table(cols), path, sep=',')
 
 
 def make_consensus_seq(subgraphs, out: str, name: str,
-                       bed_file: pd.DataFrame, config: PipelineConfig,
+                       bed_file: Table, config: PipelineConfig,
                        backend: str | None = None,
                        primer_names: tuple[str, ...] = ()) -> str:
     """Write per-cluster FASTAs + consensus FASTA; returns consensus path."""
@@ -75,20 +74,20 @@ def make_consensus_seq(subgraphs, out: str, name: str,
 
     clusters = []
     metas = []
+    qnames = bed_file['qname'].tolist()
+    seqs = [str(s) for s in bed_file['seq'].tolist()]
     for num, clust in enumerate(subgraphs):
-        seq_df = bed_file[bed_file['qname'].isin(clust)]
-        seq_df = seq_df[seq_df['seq'].astype(str).str.len() > 0][
-            ['qname', 'seq']]
+        rows = [(q, s) for q, s in zip(qnames, seqs) if q in clust and s]
         n_reads = len(clust)
         fa = os.path.join(cons_dir, f'{name}.cluster{num}.n_reads'
                                     f'{n_reads}.fa')
         with open(fa, 'w') as fh:
-            for _, row in seq_df.iterrows():
-                fh.write(f'>{row["qname"]}\n{row["seq"]}\n')
-        clusters.append(seq_df['seq'].tolist())
+            for q, s in rows:
+                fh.write(f'>{q}\n{s}\n')
+        clusters.append([s for _, s in rows])
         metas.append((num, n_reads))
 
-    cons_seqs = poa.consensus_sequences(clusters, config.consensus, backend)
+    cons_seqs = poa.consensus_sequences(clusters, config.consensus)
     cat_path = os.path.join(out, 'cluster', f'{name}.cluster.consensus.fa')
     with open(cat_path, 'w') as fh:
         for (num, n_reads), seq in zip(metas, cons_seqs):
@@ -158,7 +157,7 @@ def merge_bam_files(bam1, bam2, out_bam):
             list(_merged()), sort_by_coord=True, write_index=True)
 
 
-def run_consensus_stage(subgraphs, bed_file: pd.DataFrame, ref, sidx,
+def run_consensus_stage(subgraphs, bed_file: Table, ref, sidx,
                         panel: PrimerPanel, config: PipelineConfig,
                         backend: str | None = None):
     out = config.out
@@ -236,11 +235,11 @@ def run_consensus_stage(subgraphs, bed_file: pd.DataFrame, ref, sidx,
     # main.py:328-330)
     cons_df = mapping_table.mapping_table(aln, qnames, seqs, ref.names,
                                           config.regions, panel.seqs)
-    orig = pd.read_csv(f'{basename}.mappings.bed', sep='\t')
-    orig = orig[~orig['qname'].isin(clustered)]
-    merged = pd.concat([orig, cons_df], ignore_index=True)
-    merged = merged.sort_values(['n_alignments', 'qname', 'qstart'],
-                                ascending=[False, True, True])
+    orig = read_tsv(f'{basename}.mappings.bed')
+    orig = orig.take(np.array([q not in clustered
+                               for q in orig['qname'].tolist()], bool))
+    merged = Table.concat([orig, cons_df]).sort(
+        ['n_alignments', 'qname', 'qstart'], [False, True, True])
     mapping_table.write_mappings_bed(merged,
                                      f'{basename}.mappings_merged.bed')
 

@@ -17,7 +17,7 @@ Replicates the observable contract of the reference worker
   total_kept / total_dropped / junk_seqs_dropped / short_seqs_dropped /
   concatemers_dropped.
 
-TPU mapping: the tantan subprocess + per-read Python scanning becomes
+Device mapping: the tantan subprocess + per-read Python scanning becomes
 batched device ops — ops/tantan.repeat_mask, ops/kmer_stats.junk_blocks and
 ops/ssw.sw_max_packed over a flattened (read, window) batch with all
 primers (fwd + revcomp) lane-packed into each query row.
@@ -146,8 +146,7 @@ def filter_junk_records(reads, panel: PrimerPanel,
         buckets.setdefault(L, []).append(i)
 
     # Dispatch every batch, then fetch ALL results in two transfers (masks
-    # bit-packed 8x on device) — per-batch blocking fetches over the
-    # high-latency TPU link dominated this stage at 10k+ reads.
+    # bit-packed 8x on device) — no per-batch blocking fetch.
     # Pass 1 computes only the repeat mask + the cheap junk GATE (block
     # length + telomere content: no sorts).  The expensive segmented-sort
     # rep score (kmer_stats.junk_blocks) runs in pass 2 on gated reads

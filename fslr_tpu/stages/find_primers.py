@@ -18,7 +18,7 @@ Replicates the observable contract of the reference
   * counters: starting_bases / trimmed_bases / trimmed_reads / per-label
     combo counts (:93-114).
 
-TPU mapping: the per-pair SSW loop collapses to one batched device call per
+Device mapping: the per-pair SSW loop collapses to one batched device call per
 window side — alignments depend only on (primer, orientation, window), so
 we compute the |P|*2 distinct alignments per side and combine scores into
 the |P|^2 * 4 pair matrix on host (identical results, 4|P|x fewer

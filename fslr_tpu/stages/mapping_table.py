@@ -1,6 +1,6 @@
 """Mapping-table extraction: alignments -> ``{name}.mappings.bed``.
 
-Vectorized-pandas replication of the reference collect_mapping_info
+Vectorized replication of the reference collect_mapping_info
 (/root/reference/fslr/collect_mapping_info.py):
 
   * per-read grouping; primary = the single designated primary (the
@@ -24,10 +24,14 @@ Vectorized-pandas replication of the reference collect_mapping_info
 from __future__ import annotations
 
 import numpy as np
-import pandas as pd
 
 import fslr_tpu
 from fslr_tpu.stages.align import Alignments
+from fslr_tpu.table import Table, write_tsv
+
+COLUMNS = ['chrom', 'rstart', 'rend', 'qname', 'n_alignments', 'aln_size',
+           'qstart', 'qend', 'strand', 'mapq', 'qlen', 'alignment_score',
+           'short_anchor<50bp', 'fslr_version', 'inferred_by_primer', 'seq']
 
 
 def build_regions(regions_path):
@@ -44,8 +48,8 @@ def build_regions(regions_path):
 
 
 def _overlaps(regions, chrom, start, end):
-    """pd.Interval default closed='right' overlap: (a, b] vs (c, d]
-    intersect iff a < d and c < b."""
+    """Interval overlap as the reference's pandas.Interval (closed='right'):
+    (a, b] vs (c, d] intersect iff a < d and c < b."""
     for (s, e) in regions.get(chrom, ()):
         if start < e and s < end:
             return True
@@ -54,21 +58,16 @@ def _overlaps(regions, chrom, start, end):
 
 def mapping_table(aln: Alignments, qnames: list[str], seqs: list[str],
                   chrom_names: list[str], regions_path: str | None,
-                  primers: dict[str, str]) -> pd.DataFrame:
+                  primers: dict[str, str]) -> Table:
     """Build the mappings table.  ``qnames``/``seqs`` are indexed by
     aln.read_idx; ``primers`` maps primer name -> primer_seq (20 bp)."""
     version = fslr_tpu.__version__
     regions = build_regions(regions_path)
     n = len(aln)
 
+    cols = COLUMNS + (['overlaps_region'] if regions else [])
     if n == 0:
-        cols = ['chrom', 'rstart', 'rend', 'qname', 'n_alignments',
-                'aln_size', 'qstart', 'qend', 'strand', 'mapq', 'qlen',
-                'alignment_score', 'short_anchor<50bp', 'fslr_version',
-                'inferred_by_primer', 'seq']
-        if regions:
-            cols.append('overlaps_region')
-        return pd.DataFrame(columns=cols)
+        return Table({c: np.zeros(0, object) for c in cols})
 
     # ---- vectorized per-alignment columns ------------------------------
     ridx = aln.read_idx.astype(np.int64)
@@ -117,61 +116,63 @@ def mapping_table(aln: Alignments, qnames: list[str], seqs: list[str],
                            int(rend[i]))) for i in range(n)], np.int64)
 
     multi = n_aligns > 1
-    df_multi = pd.DataFrame({k: v[multi] for k, v in cols_all.items()})
+    parts = [Table({k: v[multi] for k, v in cols_all.items()})]
 
     # ---- single-alignment reads: inferred primer pseudo-alignments
     # ('missing bread', collect_mapping_info.py:109-158), vectorized —
     # the per-singleton dict loop dominated this stage at 1M reads ------
     singles = np.flatnonzero(~multi)
-    parts = [df_multi]
     if len(singles):
-        sd = {k: pd.Series(v[singles]) for k, v in cols_all.items()}
-        qn = sd['qname'].astype(str)
-        labels = qn.str.rsplit('.', n=1).str[-1].str.split('_')
-        l1 = labels.str[0]
-        l2 = labels.str[1]
-        p1 = l1.str.rstrip('FR')
-        p2 = l2.str.rstrip('FR')
-        ql = sd['qlen'].to_numpy()
-        qstart_gap = sd['qstart'].to_numpy()
-        qend_gap = ql - sd['qend'].to_numpy()
+        sd = {k: v[singles] for k, v in cols_all.items()}
+        qn = [str(q) for q in sd['qname'].tolist()]
+        labels = [q.rsplit('.', 1)[-1].split('_') for q in qn]
+        l1 = [lab[0] for lab in labels]
+        l2 = [lab[1] if len(lab) > 1 else None for lab in labels]
+        p1 = np.array([x.rstrip('FR') for x in l1], object)
+        p2 = np.array([x.rstrip('FR') if x is not None else None
+                       for x in l2], object)
+        ql = sd['qlen']
+        qstart_gap = sd['qstart']
+        qend_gap = ql - sd['qend']
         both_gaps = (qstart_gap > 5) & (qend_gap > 5)
-        m1 = (~both_gaps) & (p1 != 'False').to_numpy()
-        m2 = (~both_gaps) & ~m1 & (p2 != 'False').to_numpy()
-        na = sd['n_alignments'].to_numpy().copy()
+        m1 = (~both_gaps) & (p1 != 'False')
+        m2 = (~both_gaps) & ~m1 & (p2 != 'False')
+        na = sd['n_alignments'].copy()
         na[m1 | m2] = 2
-        sd['n_alignments'] = pd.Series(na)
+        sd['n_alignments'] = na
         plen = {k: len(v) for k, v in primers.items()}
 
         def _pseudo(mask, which):
             idx = np.flatnonzero(mask)
             if not len(idx):
                 return None
-            pser = (p1 if which == 1 else p2).to_numpy()[idx]
-            lser = (l1 if which == 1 else l2).to_numpy()[idx]
+            pser = (p1 if which == 1 else p2)[idx]
+            lser = [(l1 if which == 1 else l2)[i] for i in idx]
             n = len(idx)
             plens = np.array([plen[x] for x in pser], np.int64)
-            d = {'qname': qn.to_numpy()[idx], 'n_alignments': 2,
+            d = {'qname': np.array(qn, object)[idx],
+                 'n_alignments': np.full(n, 2, np.int64),
                  'chrom': pser,
                  'rstart': np.zeros(n, np.int64),
                  'rend': np.zeros(n, np.int64),
-                 'strand': np.where([x[-1] == 'R' for x in lser],
-                                    '-', '+'),
+                 'strand': np.array(['-' if x[-1] == 'R' else '+'
+                                     for x in lser], object),
                  'qstart': (np.zeros(n, np.int64) if which == 1
                             else ql[idx] - plens),
                  'qend': (plens if which == 1 else ql[idx]),
                  'qlen': ql[idx], 'aln_size': np.zeros(n, np.int64),
                  'mapq': np.zeros(n, np.int64),
                  'alignment_score': np.zeros(n, np.int64),
-                 'seq': '', 'fslr_version': version,
-                 'inferred_by_primer': 1}
+                 'seq': np.full(n, '', object),
+                 'fslr_version': np.full(n, version, object),
+                 'inferred_by_primer': np.ones(n, np.int64)}
             if regions:
                 # the reference builds pseudo-rows WITHOUT the
                 # overlaps_region key (collect_mapping_info.py:124-158),
                 # so from_records leaves NaN and the whole column turns
                 # float64 ("1.0"/"" in the TSV) — replicated quirk
                 d['overlaps_region'] = np.full(n, np.nan)
-            return pd.DataFrame(d)
+            return Table(d)
 
         # concat order preserves the reference's tie order under the
         # stable (qname, qstart) sort: start pseudos BEFORE their read's
@@ -180,18 +181,17 @@ def mapping_table(aln: Alignments, qnames: list[str], seqs: list[str],
         post = _pseudo(m2, 2)
         if pre is not None:
             parts.append(pre)
-        parts.append(pd.DataFrame(sd))
+        parts.append(Table(sd))
         if post is not None:
             parts.append(post)
-    df = (pd.concat(parts, ignore_index=True) if len(parts) > 1
-          else df_multi)
-    df = df.sort_values(['qname', 'qstart'])
+    df = Table.concat(parts) if len(parts) > 1 else parts[0]
+    df = df.sort(['qname', 'qstart'])
 
     # short-anchor flag: first/last alignment (by qstart) spans < 50 bp
     # (collect_mapping_info.py:164-172); group-start/end extraction over
     # the (qname, qstart)-sorted frame replaces the per-qname groupby loop
-    qn = df['qname'].to_numpy()
-    sizes = df['aln_size'].to_numpy()
+    qn = df['qname']
+    sizes = df['aln_size']
     starts_m = np.ones(len(df), bool)
     starts_m[1:] = qn[1:] != qn[:-1]
     ends_m = np.empty(len(df), bool)
@@ -199,20 +199,14 @@ def mapping_table(aln: Alignments, qnames: list[str], seqs: list[str],
     ends_m[-1] = True
     gidx = np.cumsum(starts_m) - 1
     bad = (sizes[starts_m] < 50) | (sizes[ends_m] < 50)
-    df['short_anchor<50bp'] = bad[gidx].astype(int)
+    df['short_anchor<50bp'] = bad[gidx].astype(np.int64)
 
-    df = df.sort_values(['n_alignments', 'qname', 'qstart'],
-                        ascending=[False, True, True])
-    cols = ['chrom', 'rstart', 'rend', 'qname', 'n_alignments', 'aln_size',
-            'qstart', 'qend', 'strand', 'mapq', 'qlen', 'alignment_score',
-            'short_anchor<50bp', 'fslr_version', 'inferred_by_primer', 'seq']
-    if regions:
-        cols.append('overlaps_region')
-    return df[cols]
+    df = df.sort(['n_alignments', 'qname', 'qstart'], [False, True, True])
+    return df.select(cols)
 
 
-def write_mappings_bed(df: pd.DataFrame, path: str):
-    df.to_csv(path, index=False, sep='\t')
+def write_mappings_bed(df: Table, path: str):
+    write_tsv(df, path)
 
 
 def _clip_query_span(cigar: list[tuple[int, str]]):
@@ -231,7 +225,7 @@ def _clip_query_span(cigar: list[tuple[int, str]]):
 
 def mapping_table_from_bam(bam_path: str, regions_path: str | None = None,
                            primers: dict[str, str] | None = None
-                           ) -> pd.DataFrame:
+                           ) -> Table:
     """Rebuild the mappings table from ANY coordinate/name-ordered BAM —
     the reference's standalone ``collect_mapping_info --bam --out`` mode
     (/root/reference/fslr/collect_mapping_info.py:184-191).

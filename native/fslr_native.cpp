@@ -1,4 +1,4 @@
-// fslr-jax native host runtime: FASTQ/FASTA parsing at IO speed.
+// fslr-tpu native host runtime: FASTQ/FASTA parsing at IO speed.
 //
 // The reference pipeline's IO edge is native (pysam/htslib readers, gzip;
 // SURVEY.md N8/N9).  This library is the equivalent for this engine:

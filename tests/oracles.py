@@ -3,7 +3,7 @@
 These are straightforward O(Q*T) implementations of the published recurrences
 (affine-gap Smith-Waterman, Gotoh) used to validate the JAX and CUDA kernels.
 End-position tie semantics mirror the ssw library as documented in
-fslr_jax/ops/ssw.py.
+fslr_tpu/ops/ssw.py.
 """
 
 import numpy as np

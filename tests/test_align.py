@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from fslr_jax.config import AlignConfig, PipelineConfig, ScoringConfig
-from fslr_jax.encode import decode, encode, revcomp, revcomp_str
-from fslr_jax.index.reference import (Reference, build_seed_index,
+from fslr_tpu.config import AlignConfig, PipelineConfig, ScoringConfig
+from fslr_tpu.encode import decode, encode, revcomp, revcomp_str
+from fslr_tpu.index.reference import (Reference, build_seed_index,
                                       load_reference)
-from fslr_jax.ops import banded, selection
-from fslr_jax.stages import align as align_stage
+from fslr_tpu.ops import banded, selection
+from fslr_tpu.stages import align as align_stage
 from tests.oracles import mutate, random_seq, sw_oracle
 
 BWA_SC = ScoringConfig(gap_open_is_first_base=False)
@@ -242,7 +242,7 @@ def test_sharded_index_matches_unsharded():
 
 
 def test_shard_contig_ranges_packing():
-    from fslr_jax.index.reference import shard_contig_ranges
+    from fslr_tpu.index.reference import shard_contig_ranges
     assert shard_contig_ranges([10, 10, 10], 25) == [(0, 2), (2, 3)]
     assert shard_contig_ranges([30, 10], 25) == [(0, 1), (1, 2)]
     assert shard_contig_ranges([5], 25) == [(0, 1)]
@@ -254,7 +254,7 @@ def test_window_lo_merge_matches_searchsorted():
     search it replaces (ops/seed.py)."""
     import jax.numpy as jnp
 
-    from fslr_jax.ops.seed import _window_lo_merge, _window_lo_search
+    from fslr_tpu.ops.seed import _window_lo_merge, _window_lo_search
     rng = np.random.default_rng(3)
     for trial in range(4):
         vals = np.sort(rng.integers(0, 2 ** 29, (5, 257)).astype(np.int32),
@@ -270,7 +270,7 @@ def test_window_lo_merge_matches_searchsorted():
 def test_bwa_style_mapq_model():
     """MAPQ model properties (bwa mem single-end family): unique strong
     hits max out, crowded/tied hits go to 0, sub-count penalizes."""
-    from fslr_jax.stages.align import _bwa_style_mapq
+    from fslr_tpu.stages.align import _bwa_style_mapq
 
     # unique, perfect 500 bp alignment: s1 = 2*500, no competitor
     m_uniq = _bwa_style_mapq(1000, 0, 500, 500, 2, 3, 22, 0)

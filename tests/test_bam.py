@@ -5,7 +5,7 @@ import struct
 
 import pytest
 
-from fslr_jax.io import bam
+from fslr_tpu.io import bam
 
 
 def _mk_record(**kw):
@@ -88,7 +88,7 @@ def test_bai_index_and_fetch(tmp_path):
     reference's samtools index + pysam fetch usage, main.py:140,167)."""
     import numpy as np
 
-    from fslr_jax.io import bam as bamio
+    from fslr_tpu.io import bam as bamio
 
     rng = np.random.default_rng(9)
     names = ['chrA', 'chrB']
@@ -129,7 +129,7 @@ def test_bai_index_and_fetch(tmp_path):
 def test_bai_linear_index_prunes_blocks(tmp_path):
     """fetch on a tail region must not decode every record (the linear
     index skips leading chunks)."""
-    from fslr_jax.io import bam as bamio
+    from fslr_tpu.io import bam as bamio
 
     names = ['chrA']
     lengths = [50_000_000]
@@ -147,7 +147,7 @@ def test_stream_raw_records_roundtrip(tmp_path):
     """Raw-payload streaming must expose exactly the records read_bam
     decodes (qname/ref/pos/ref_end), and copied payloads must re-read
     identically (the consensus delete/merge fast path)."""
-    from fslr_jax.io import bam as bamio
+    from fslr_tpu.io import bam as bamio
     path = str(tmp_path / 'r.bam')
     recs = [
         bamio.BamRecord(qname=f'q{i}', flag=0 if i % 2 == 0 else 16,
@@ -187,13 +187,13 @@ def test_encode_chunk_items_byte_identical(tmp_path):
     (both strands, clips, primaries with reversed seq/qual, AS tags)."""
     import numpy as np
 
-    from fslr_jax.config import PipelineConfig
-    from fslr_jax.encode import decode, revcomp_str
-    from fslr_jax.index.reference import Reference, build_seed_index
-    from fslr_jax.io import bam as bamio
-    from fslr_jax.io.fastq import read_reads
-    from fslr_jax.pipeline import _encode_chunk_fallback
-    from fslr_jax.stages import align as align_stage
+    from fslr_tpu.config import PipelineConfig
+    from fslr_tpu.encode import decode, revcomp_str
+    from fslr_tpu.index.reference import Reference, build_seed_index
+    from fslr_tpu.io import bam as bamio
+    from fslr_tpu.io.fastq import read_reads
+    from fslr_tpu.pipeline import _encode_chunk_fallback
+    from fslr_tpu.stages import align as align_stage
     from tests.oracles import mutate, random_seq
 
     cfg = PipelineConfig()

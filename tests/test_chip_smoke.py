@@ -20,11 +20,9 @@ def test_device_phase_refuses_cpu_without_override():
 
 def test_kernel_phase_tiny():
     out = chip_smoke.phase_kernels(
-        'jax', sl=256, band_rows=5, sw_reads=2, packed_rows=3, hmm_rows=5,
-        hmm_len=768, repeats=1)
+        'jax', sl=256, band_rows=5, sw_reads=2, packed_rows=3, repeats=1)
     assert set(out) == {'banded_score', 'banded_emit_walk', 'sw_locate',
-                        'sw_max_packed', 'repeat_mask'}
-    assert out['repeat_mask']['positions_differing'] == 0.0
+                        'sw_max_packed'}
     assert all(v['kernel_s'] > 0 and v['plain_s'] > 0 for v in out.values())
 
 
@@ -36,6 +34,19 @@ def test_main_path_phase_tiny(tmp_path):
     assert res['compiles_in_timed_run'] >= 0
     assert res['paths']['encounter_build'] == 'host'
     assert os.path.exists(tmp_path / 'check_jax' / 'S.mappings.cluster.bed')
+
+
+def test_compare_routes_phase_tiny(tmp_path):
+    import bench
+    ref, fq_dir = bench.make_dataset(str(tmp_path), 12, n_groups=2,
+                                     ref_mb=1_400_000)
+    res = chip_smoke.phase_compare_routes(
+        str(tmp_path), ref, fq_dir, ['all_plain', 'sw_locate'], repeats=1)
+    assert set(res) == {'all_plain', 'sw_locate_plain'}
+    for pair in res.values():
+        assert len(pair['variant']) == len(pair['default']) == 1
+        assert all(wall > 0 and 'align' in stages
+                   for wall, stages in pair['variant'] + pair['default'])
 
 
 def test_consensus_phase_tiny(tmp_path):

@@ -4,8 +4,8 @@ additions)."""
 
 import pytest
 
-from fslr_jax import cli
-from fslr_jax.config import PipelineConfig
+from fslr_tpu import cli
+from fslr_tpu.config import PipelineConfig
 
 REQUIRED = ['--name', 'S', '--out', 'o', '--ref', 'r.fa',
             '--primers', '21q1,17p6']

@@ -4,9 +4,9 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from fslr_jax.config import ClusterConfig
-from fslr_jax.ops import components, jaccard
-from fslr_jax.stages import cluster as C
+from fslr_tpu.config import ClusterConfig
+from fslr_tpu.ops import components, jaccard
+from fslr_tpu.stages import cluster as C
 
 CFG = ClusterConfig()
 CHR_LEN = {'chr1': 10_000_000, 'chr2': 10_000_000}
@@ -316,7 +316,7 @@ def test_sliced_encounter_enumeration_matches(monkeypatch):
     bed = _bed(reads)
     res_big = C.cluster_stage(bed, CHR_LEN, CFG)
 
-    import fslr_jax.stages.cluster as cm
+    import fslr_tpu.stages.cluster as cm
     src = cm.query_graph.__globals__
     # shrink the cap by patching the module constant inside query_graph:
     # SLICE_CAP is a local literal, so patch via code path — rebuild the
@@ -341,7 +341,7 @@ def test_scale_enumeration_matches_host(scale_path, monkeypatch):
     like the host path."""
     import dataclasses as dc
 
-    from fslr_jax.ops import encounters as enc
+    from fslr_tpu.ops import encounters as enc
 
     if scale_path == 'spill':
         # force the fallback: pretend the sharded build overflowed
@@ -390,7 +390,7 @@ def test_capwalk_replay_matches_sequential_walk():
     (/root/reference/fslr/cluster.py:204-224: emit on pass, and once
     edge_count >= threshold skip the rest of the current interval's
     neighbors on every valued entry) for adversarial random patterns."""
-    from fslr_jax.ops import capwalk
+    from fslr_tpu.ops import capwalk
 
     def sequential(passv, gated, runs, bounds, T):
         E = len(passv)
@@ -450,9 +450,9 @@ def test_value_and_replay_host_chunked_matches_flat():
     compare against the one-chunk pass."""
     import numpy as np
 
-    from fslr_jax.config import ClusterConfig
-    from fslr_jax.ops import capwalk as cw
-    from fslr_jax.stages import cluster as C
+    from fslr_tpu.config import ClusterConfig
+    from fslr_tpu.ops import capwalk as cw
+    from fslr_tpu.stages import cluster as C
     from tests.test_reference_oracle import make_frame
 
     rng = np.random.default_rng(909)
@@ -488,8 +488,8 @@ def test_spill_query_ranges_ragged_tail():
     69 reads -> q_span = 2, last range holds one read."""
     import numpy as np
 
-    from fslr_jax.config import ClusterConfig
-    from fslr_jax.stages import cluster as C
+    from fslr_tpu.config import ClusterConfig
+    from fslr_tpu.stages import cluster as C
 
     rng = np.random.default_rng(6969)
     R = 69

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from fslr_jax.config import ConsensusConfig, ScoringConfig
-from fslr_jax.encode import decode, encode
-from fslr_jax.ops import banded, poa
+from fslr_tpu.config import ConsensusConfig, ScoringConfig
+from fslr_tpu.encode import decode, encode
+from fslr_tpu.ops import banded, poa
 from tests.oracles import mutate, random_seq
 
 CFG = ConsensusConfig()

@@ -4,20 +4,19 @@ The CUDA kernels cannot run here; their wrappers are driven through a
 stand-in for the FFI call that honours each target's buffer contract with
 the plain JAX path, so what is checked is everything the wrappers do
 around the kernel: dtypes, query padding, the (N, 3) / (N, 6) result
-layouts, transposes and the final masking."""
+layouts and transposes."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from fslr_jax.config import JunkFilterConfig, ScoringConfig
-from fslr_jax.ops import banded, cuda, ssw, tantan
-from fslr_jax.ops import traceback as tb
+from fslr_tpu.config import ScoringConfig
+from fslr_tpu.ops import banded, cuda, ssw
+from fslr_tpu.ops import traceback as tb
 from tests.oracles import mutate, random_seq
 
 BWA_SC = ScoringConfig(gap_open_is_first_base=False)
 SSW_SC = ScoringConfig()
-HMM_CFG = JunkFilterConfig()
 
 
 def _twin(name, out_types, *args, **attrs):
@@ -51,17 +50,6 @@ def _twin(name, out_types, *args, **attrs):
         assert q.shape[1] == 128
         return ssw._sw_packed_jax(q, t, tlens, stride=int(attrs['stride']),
                                   **kw)
-    if name == 'fslr_repeat_hmm':
-        seq, sd = args
-        P = int(attrs['n_per'])
-        assert sd.shape == (128,) and not np.any(np.asarray(sd)[P:])
-        full = jnp.full((seq.shape[0],), seq.shape[1], jnp.int32)
-        m = tantan._mask_impl(
-            seq, full, P, HMM_CFG.mask_repeat_start, HMM_CFG.mask_repeat_end,
-            HMM_CFG.mask_decay, HMM_CFG.mask_match_prob,
-            HMM_CFG.mask_posterior_threshold)
-        return (m.astype(jnp.uint8),
-                jnp.zeros(out_types[1].shape, jnp.float32))
     raise AssertionError(name)
 
 
@@ -171,17 +159,3 @@ def test_sw_packed_wrapper(twin_ffi):
     for g, e in zip(got, want):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(e))
     assert float(got[0][0]) == 40.0
-
-
-def test_repeat_hmm_wrapper_masks_length_and_n(twin_ffi):
-    rng = np.random.default_rng(5)
-    B, L = 3, 512
-    seq = rng.integers(0, 4, (B, L)).astype(np.uint8)
-    seq[0, 100:400] = np.tile(seq[0, 100:107], 43)[:300]
-    seq[1, 10:40] = 4
-    lens = np.array([512, 300, 200], np.int32)
-    got = np.asarray(tantan.repeat_mask(seq, lens, HMM_CFG, backend='cuda'))
-    want = np.asarray(tantan.repeat_mask(seq, lens, HMM_CFG, backend='jax'))
-    assert got.dtype == bool and got.shape == (B, L)
-    np.testing.assert_array_equal(got, want)
-    assert got[0].sum() > 200 and not got[1, 300:].any()

@@ -35,12 +35,12 @@ import pytest
 
 sys.path.insert(0, '/root/repo/tests')
 
-from fslr_jax.config import PipelineConfig
-from fslr_jax.encode import encode, revcomp_str
-from fslr_jax.io.fastq import FastxRecord, records_to_arrays
-from fslr_jax.panel import load_panel
-from fslr_jax.stages.filter_junk import filter_junk_records
-from fslr_jax.stages.find_primers import ORIENT_COMBOS, label_and_chop
+from fslr_tpu.config import PipelineConfig
+from fslr_tpu.encode import encode, revcomp_str
+from fslr_tpu.io.fastq import FastxRecord, records_to_arrays
+from fslr_tpu.panel import load_panel
+from fslr_tpu.stages.filter_junk import filter_junk_records
+from fslr_tpu.stages.find_primers import ORIENT_COMBOS, label_and_chop
 from tests.oracles import random_seq
 
 CONFIG = PipelineConfig()
@@ -67,7 +67,7 @@ class _ShimSSW:
         self.q = encode(query)
 
     def __call__(self, target):
-        from fslr_jax.ops import ssw
+        from fslr_tpu.ops import ssw
 
         def pad(arr, min_len):
             L = max(min_len, 1 << int(np.ceil(np.log2(max(len(arr), 2)))))

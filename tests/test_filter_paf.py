@@ -1,4 +1,4 @@
-"""PAF filter utility (fslr_jax/tools/filter_paf.py).
+"""PAF filter utility (fslr_tpu/tools/filter_paf.py).
 
 Reference semantics: /root/reference/fslr/filter_paf.py:10-34 — drop
 self-hits, require query/target coverage >= min_cov, and matching-bases
@@ -9,7 +9,7 @@ import io
 import subprocess
 import sys
 
-from fslr_jax.tools.filter_paf import row_passes, run
+from fslr_tpu.tools.filter_paf import row_passes, run
 
 
 def _paf(qname, qlen, qs, qe, tname, tlen, ts, te, nmatch):
@@ -53,7 +53,7 @@ def test_run_streams_and_counts():
 def test_cli_stdin_stdout():
     line = _paf('x', 50, 0, 50, 'y', 50, 0, 50, 48) + '\n'
     p = subprocess.run(
-        [sys.executable, '-m', 'fslr_jax.tools.filter_paf', '0.9'],
+        [sys.executable, '-m', 'fslr_tpu.tools.filter_paf', '0.9'],
         input=line + _paf('x', 50, 0, 50, 'x', 50, 0, 50, 48) + '\n',
         capture_output=True, text=True)
     assert p.returncode == 0

@@ -13,10 +13,10 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from fslr_jax.config import PipelineConfig
-from fslr_jax.encode import decode, revcomp_str
-from fslr_jax.panel import load_panel
-from fslr_jax.pipeline import run_pipeline
+from fslr_tpu.config import PipelineConfig
+from fslr_tpu.encode import decode, revcomp_str
+from fslr_tpu.panel import load_panel
+from fslr_tpu.pipeline import run_pipeline
 from tests.oracles import mutate, random_seq
 
 GOLDEN = os.path.join(os.path.dirname(__file__), 'golden',

@@ -17,9 +17,9 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from fslr_jax.encode import revcomp_str
-from fslr_jax.io import bam as bamio
-from fslr_jax.stages.mapping_table import mapping_table_from_bam
+from fslr_tpu.encode import revcomp_str
+from fslr_tpu.io import bam as bamio
+from fslr_tpu.stages.mapping_table import mapping_table_from_bam
 
 _CIG_CODE = {'M': 0, 'I': 1, 'D': 2, 'N': 3, 'S': 4, 'H': 5,
              'P': 6, '=': 7, 'X': 8}
@@ -330,9 +330,9 @@ def _run_both(tmp_path, rng, regions=None):
 
     names, _lengths, records = bamio.open_bam(bam)
     shims = [ShimRecord(r) for r in records]
-    import fslr_jax
+    import fslr_tpu
     want = ref_mapping_info(shims, names, regions_list, PRIMERS,
-                            fslr_jax.__version__)
+                            fslr_tpu.__version__)
     return got.reset_index(drop=True), want.reset_index(drop=True)
 
 

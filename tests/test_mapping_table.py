@@ -3,8 +3,8 @@
 import numpy as np
 import pandas as pd
 
-from fslr_jax.stages.align import Alignments
-from fslr_jax.stages import mapping_table as mt
+from fslr_tpu.stages.align import Alignments
+from fslr_tpu.stages import mapping_table as mt
 
 
 def mapping_table(*args, **kwargs):

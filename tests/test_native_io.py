@@ -5,9 +5,9 @@ import gzip
 import numpy as np
 import pytest
 
-from fslr_jax.encode import encode
-from fslr_jax.io import fastq
-from fslr_jax.io.native import parse_fastx
+from fslr_tpu.encode import encode
+from fslr_tpu.io import fastq
+from fslr_tpu.io.native import parse_fastx
 
 
 def _native_or_skip(path):

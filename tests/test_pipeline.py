@@ -11,11 +11,11 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from fslr_jax.config import PipelineConfig
-from fslr_jax.encode import decode, revcomp_str
-from fslr_jax.io import bam as bamio
-from fslr_jax.panel import load_panel
-from fslr_jax.pipeline import run_pipeline
+from fslr_tpu.config import PipelineConfig
+from fslr_tpu.encode import decode, revcomp_str
+from fslr_tpu.io import bam as bamio
+from fslr_tpu.panel import load_panel
+from fslr_tpu.pipeline import run_pipeline
 from tests.oracles import random_seq
 
 PANEL = load_panel().subset(['21q1', '17p6'])
@@ -154,7 +154,7 @@ def test_pipeline_consensus_stage(workdir):
     base = os.path.join(out, 'C')
     cons_fa = os.path.join(out, 'cluster', 'C.cluster.consensus.fa')
     assert os.path.exists(cons_fa)
-    from fslr_jax.io.fastq import read_fastx
+    from fslr_tpu.io.fastq import read_fastx
     cons = list(read_fastx(cons_fa))
     assert len(cons) == 2                  # two clusters
     assert cons[0].name.startswith('cluster:')
@@ -279,7 +279,7 @@ def test_mapping_table_from_bam_roundtrip(workdir):
     (collect_mapping_info.py:184-191 mode) must rebuild the pipeline's
     own bed exactly from its own BAM — minus the inferred-primer
     pseudo-rows' seq column semantics, which are identical anyway."""
-    from fslr_jax.stages.mapping_table import mapping_table_from_bam
+    from fslr_tpu.stages.mapping_table import mapping_table_from_bam
     root, ref_path, fq_dir = workdir
     basename = os.path.join(str(root / 'out'), 'T')
     bam = basename + '.bwa_dodi.bam'

@@ -5,7 +5,7 @@ regressions but not wrongness.  These tests plant synthetic split reads
 with KNOWN segment coordinates (chrom, start, end, strand per segment)
 and sweep substitution/indel noise through the nanopore range, then
 assert on the full seed -> chain -> extend -> select stage
-(fslr_jax/stages/align.py — the bwa mem | dodi replacement,
+(fslr_tpu/stages/align.py — the bwa mem | dodi replacement,
 /root/reference/fslr/main.py:125,137):
 
   * segment recall — every planted segment must be recovered by a
@@ -24,10 +24,10 @@ import sys
 import numpy as np
 import pytest
 
-from fslr_jax.config import PipelineConfig
-from fslr_jax.encode import decode, revcomp
-from fslr_jax.index.reference import Reference, build_seed_index
-from fslr_jax.stages import align as align_stage
+from fslr_tpu.config import PipelineConfig
+from fslr_tpu.encode import decode, revcomp
+from fslr_tpu.index.reference import Reference, build_seed_index
+from fslr_tpu.stages import align as align_stage
 from tests.oracles import mutate, random_seq
 
 CONFIG = PipelineConfig()
@@ -167,7 +167,7 @@ def test_seeding_sensitivity(planted_ref):
     ref, sidx = planted_ref
     rng = np.random.default_rng(7)
     seqs, truths = _plant_reads(rng, ref, n_reads=12, sub=0.08, indel=0.04)
-    from fslr_jax.encode import encode_cat
+    from fslr_tpu.encode import encode_cat
     cat, off = encode_cat(seqs)
     cands = align_stage._seed_rows(cat, off, ref, sidx, CONFIG,
                                    backend='jax')

@@ -5,11 +5,11 @@ POA-engine consensus quality (abpoa replacement semantics,
 import numpy as np
 import pytest
 
-from fslr_jax.config import ConsensusConfig, ScoringConfig
-from fslr_jax.encode import decode, encode
-from fslr_jax.ops import poa, profile_align as pa
-from fslr_jax.ops.banded import BW
-from fslr_jax.ops.ssw import first_gap_cost
+from fslr_tpu.config import ConsensusConfig, ScoringConfig
+from fslr_tpu.encode import decode, encode
+from fslr_tpu.ops import poa, profile_align as pa
+from fslr_tpu.ops.banded import BW
+from fslr_tpu.ops.ssw import first_gap_cost
 from tests.oracles import mutate, random_seq
 
 NEG = -1e30

@@ -24,10 +24,10 @@ import sys
 import numpy as np
 import pytest
 
-from fslr_jax.config import PipelineConfig
-from fslr_jax.encode import decode, revcomp
-from fslr_jax.index.reference import Reference, build_seed_index
-from fslr_jax.stages import align as align_stage
+from fslr_tpu.config import PipelineConfig
+from fslr_tpu.encode import decode, revcomp
+from fslr_tpu.index.reference import Reference, build_seed_index
+from fslr_tpu.stages import align as align_stage
 from tests.oracles import mutate, random_seq
 
 CONFIG = PipelineConfig()

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from fslr_jax.config import ScoringConfig
-from fslr_jax.ops import ssw
+from fslr_tpu.config import ScoringConfig
+from fslr_tpu.ops import ssw
 from tests.oracles import sw_oracle, sw_locate_oracle, random_seq, mutate
 
 SSW_SC = ScoringConfig()                                  # ssw convention

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from fslr_jax.config import PipelineConfig
-from fslr_jax.encode import decode, encode, revcomp_str
-from fslr_jax.io.fastq import FastxRecord, read_fastx
-from fslr_jax.panel import load_panel
-from fslr_jax.stages import filter_junk, find_primers
+from fslr_tpu.config import PipelineConfig
+from fslr_tpu.encode import decode, encode, revcomp_str
+from fslr_tpu.io.fastq import FastxRecord, read_fastx
+from fslr_tpu.panel import load_panel
+from fslr_tpu.stages import filter_junk, find_primers
 from tests.oracles import random_seq, sw_locate_oracle
 
 CONFIG = PipelineConfig(primers=('21q1', '17p6'))

@@ -8,7 +8,7 @@ import sys
 import numpy as np
 import pandas as pd
 
-from fslr_jax.table import Table, read_tsv, write_tsv
+from fslr_tpu.table import Table, read_tsv, write_tsv
 
 
 def _mappings_like(n=40, seed=0, with_missing=True):
@@ -82,7 +82,7 @@ def test_sort_and_concat_follow_pandas():
 def test_compile_cache_directory_rule(tmp_path):
     """JAX_COMPILATION_CACHE_DIR, when set, is left to JAX; otherwise the
     cache sits at one fixed path inside the checkout."""
-    code = ('import jax, fslr_jax; '
+    code = ('import jax, fslr_tpu; '
             'print(jax.config.jax_compilation_cache_dir)')
     env = {k: v for k, v in os.environ.items()
            if k != 'JAX_COMPILATION_CACHE_DIR'}

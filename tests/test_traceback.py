@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from fslr_jax.config import ScoringConfig
-from fslr_jax.ops import traceback as tb
+from fslr_tpu.config import ScoringConfig
+from fslr_tpu.ops import traceback as tb
 from tests.oracles import mutate, random_seq
 
 BWA_SC = ScoringConfig(gap_open_is_first_base=False)
@@ -116,8 +116,8 @@ def test_decode_emit_rows_native_matches_numpy():
     """Native C++ RLE (fslr_decode_emits) vs the numpy decode path on
     random packed blocks, including all-padding rows."""
     import numpy as np
-    from fslr_jax.io.native import decode_emits
-    from fslr_jax.ops import traceback as tbmod
+    from fslr_tpu.io.native import decode_emits
+    from fslr_tpu.ops import traceback as tbmod
     rng = np.random.default_rng(11)
     n, t4 = 64, 96
     blocks = rng.integers(0, 256, (n, t4)).astype(np.uint8)
